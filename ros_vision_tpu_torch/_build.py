@@ -1,0 +1,170 @@
+"""First-use build of the CUDA kernels and their ctypes binding.
+
+All of ``csrc/*.cu`` is compiled by one ``nvcc`` call into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds, not minutes) under ``build/ros_vision_tpu_torch/`` beside the
+package, named by a hash of the sources and flags so an edited source is
+never served a stale binary. Nothing is compiled at import: the first
+kernel launch builds and loads the library. Each C launcher enqueues on
+the stream it is given, allocates nothing, and returns
+``cudaGetLastError()``; :func:`launch` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "ros_vision_tpu_torch"
+# no --use_fast_math: the thinning selection in boundary.cu needs IEEE
+# division and round-to-nearest products (nvcc's defaults)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# every launcher: (..., int device, void* stream) -> int cudaError_t
+_SIGNATURES = {
+    # gray, decim, threshim, tmin, tmax, b, h, w, min_white_black_diff
+    "rvt_adaptive_threshold": [_P] * 5 + [_I] * 4,
+    # threshim, labels, size_root, rank_root, block_counts, ranks, sizes,
+    # b, h, w, min_blob, max_blobs
+    "rvt_rank_image": [_P] * 7 + [_I] * 5,
+    # threshim, ranks, maskbits, pm, blk_a, blk_b, key, pack2, counts,
+    # b, h, w, p_cap, k_cap
+    "rvt_boundary_compact": [_P] * 9 + [_I] * 5,
+    # values, out, b, k, num_values
+    "rvt_value_histogram": [_P] * 2 + [_I] * 3,
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+class KernelLibrary:
+    """The built, loaded kernel library (one per process)."""
+
+    def __init__(self):
+        self._lib = None
+        self._lock = threading.Lock()
+        self.build_seconds: float | None = None   # None until built here
+        self.build_log = ""
+
+    def build(self) -> Path:
+        out = library_path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+        t0 = time.monotonic()
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
+                           capture_output=True, text=True)
+        self.build_seconds = time.monotonic() - t0
+        self.build_log = r.stdout + r.stderr
+        (BUILD_DIR / "build.log").write_text(self.build_log)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
+                               f"{self.build_log}")
+        os.replace(tmp, out)
+        return out
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                for name, args in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = args + [_I, _P]
+                    fn.restype = _I
+                self._lib = lib
+            return self._lib
+
+
+LIBRARY = KernelLibrary()
+
+
+class LaunchCounter:
+    """Launches of one kernel; its wrapper adds one per launch and nowhere
+    else, so a run can show that the main path went through the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+
+COUNTERS: dict[str, LaunchCounter] = {}
+
+
+def counter(name: str) -> LaunchCounter:
+    COUNTERS[name] = c = LaunchCounter(name)
+    return c
+
+
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.count = 0
+
+
+def counts() -> dict[str, int]:
+    return {n: c.count for n, c in COUNTERS.items()}
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call launcher `name` with tensors passed as device pointers (None ->
+    NULL) and ints as ints, on `device`'s current stream; raise if the
+    launch reported an error."""
+    lib = LIBRARY.get()
+    conv = [None if a is None else a.data_ptr()
+            if isinstance(a, torch.Tensor) else int(a) for a in args]
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name)(*conv, index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 shape: tuple, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` — the contract every kernel wrapper enforces before passing
+    a raw pointer to C."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
