@@ -5,19 +5,30 @@
 
 Needs one CUDA card; without one it exits nonzero and prints no result.
 Phases, each of which raises (and so exits nonzero) on failure:
-  1. build the four kernels (csrc/*.cu, nvcc, sm_90a) from the checkout;
-  2. kernel checks: each kernel against its plain PyTorch version on the
-     card, at the 1280x800 tag36h11 path's shapes (the 4-tag bench scene
-     at B=4 with four noise seeds, plus one cluttered frame that
-     overflows both boundary caps), bit-exact, with the median of 20 CUDA
-     event timings of each;
-  3. detector: TorchDetector at B=1 and B=4 on the bench scene — ids
-     [0, 42, 100, 311] in every row, corners within 0.1 px of the same
-     detector's plain path on the CPU and within 1 px of the rendered
-     corners, every kernel's launch counter raised;
-  4. system: the port's VisionSystem with 4 mock cameras at 1280x800, each
+  1. build the kernels (one nvcc per csrc/*.cu, all started together,
+     sm_90a) from the checkout;
+  2. kernel checks: each of the eight kernels against its plain PyTorch
+     version on the card, bit-exact, with the median of 20 CUDA event
+     timings of each. K1-K4 at the 1280x800 tag36h11 path's shapes (the
+     4-tag bench scene at B=4 with four noise seeds, plus one cluttered
+     frame that overflows both boundary caps); K1 and K3 again at
+     1920x1080; K6, K7 and K12 at 1920x1080 (bench scene B=4 and a
+     cluttered frame past the 2048-blob rank space); K8 at 1280x800 B=4
+     with 448, 0 and 1 sweeps;
+  3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
+     on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
+     every row, corners within 0.1 px of the same detector's plain path on
+     the CPU and within 1 px of the rendered corners, and exactly the
+     front end's kernel set launched (K2 at 1280x800, K6 + K7 at
+     1920x1080);
+  4. the other ops/ccl.py entry points: label_components_hybrid (K8),
+     flood_ranks (K6, K7, K12) and label_components_flood with
+     broadcast="flood" (K6, K7), each held against the plain CCL;
+  5. system: the port's VisionSystem with 4 mock cameras at 1280x800, each
      showing its own tags, spun for >= 20 batches; each camera publishes
      its own ids with finite robot-frame poses.
+Every path of phases 3-5 runs with the launch counts set to 0 just before
+it and read just after; the launches of the kernels line sum those runs.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -36,7 +47,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 BENCH_IDS = [0, 42, 100, 311]
 W, H = 1280, 800
+W2, H2 = 1920, 1080
+# At noise sigma 1 the flat background of a 1920x1080 bench frame
+# thresholds into speckle that fills the point and segment caps, and the
+# JAX detector finds none of the tags there; sigma 0.75 keeps all four.
+NOISE_1080 = 0.75
 REPS = 20
+# kernels each path must launch; every other kernel must not launch there
+PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
+            "value_histogram"}
+PATH_1080 = {"adaptive_threshold", "propagate_fixpoint", "label_histogram",
+             "boundary_compact", "value_histogram"}
 
 
 def check(cond, msg: str) -> None:
@@ -44,29 +65,41 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bench_scene(seed: int):
-    """The bench.py scene (4 tags at 1280x800, noise sigma 1)."""
+def bench_scene(seed: int, width: int = W, height: int = H,
+                noise: float = 1.0):
+    """The bench.py scene (4 tags at 1280x800, noise sigma 1), its layout
+    scaled by width / 1280 for other frame sizes."""
     from ros_vision_tpu.apriltag.render import (render_scene,
                                                 simple_square_corners)
+    s = width / W
     return render_scene(
         [0, 42, 311, 100],
-        [simple_square_corners(300, 250, 90),
-         simple_square_corners(800, 400, 110, angle_deg=20),
-         simple_square_corners(450, 600, 70, angle_deg=-35),
-         simple_square_corners(1000, 600, 60, angle_deg=50)],
-        W, H, noise_sigma=1.0, seed=seed)
+        [simple_square_corners(300 * s, 250 * s, 90 * s),
+         simple_square_corners(800 * s, 400 * s, 110 * s, angle_deg=20),
+         simple_square_corners(450 * s, 600 * s, 70 * s, angle_deg=-35),
+         simple_square_corners(1000 * s, 600 * s, 60 * s, angle_deg=50)],
+        width, height, noise_sigma=noise, seed=seed)
 
 
-def clutter_frame(seed: int = 7) -> np.ndarray:
+def clutter_frame(seed: int = 7, width: int = W,
+                  height: int = H) -> np.ndarray:
     """A 12x12-px black/white checkerboard with 10% of its blocks flipped:
     thousands of 4-connected black blobs above the 25-px minimum and
     boundary everywhere, so the 2048-blob rank space and both boundary
     caps overflow."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[:H // 12 + 1, :W // 12 + 1]
+    yy, xx = np.mgrid[:height // 12 + 1, :width // 12 + 1]
     blocks = ((yy + xx) % 2) ^ (rng.random(yy.shape) < 0.1)
-    img = np.kron(blocks * 200 + 20, np.ones((12, 12)))[:H, :W]
+    img = np.kron(blocks * 200 + 20, np.ones((12, 12)))[:height, :width]
     return (img + rng.normal(0, 2.0, img.shape)).clip(0, 255).astype(np.uint8)
+
+
+def check_kernel_set(what: str, counts: dict, must: set) -> None:
+    """Every kernel of `must` launched, every other kernel not."""
+    check(all(counts[k] > 0 for k in must)
+          and all(c == 0 for k, c in counts.items() if k not in must),
+          f"{what}: expected launches of exactly {sorted(must)}, got "
+          f"{counts}")
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -103,36 +136,53 @@ def max_abs_err(name: str, got, want) -> float:
     return err
 
 
-def kernel_phase(dev, bench4, clutter):
+def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     import torch
+    from ros_vision_tpu_torch.ops import ccl
+    from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
     from ros_vision_tpu_torch.ops import gather_kernel as gk
     from ros_vision_tpu_torch.ops import quadfit as qf
     from ros_vision_tpu_torch.ops import segments as segs
-    from ros_vision_tpu_torch.ops import ccl
     from ros_vision_tpu_torch.ops import threshold_kernel as tk
 
     results = []
     g4 = torch.from_numpy(bench4).to(dev)
     gc = torch.from_numpy(clutter[None]).to(dev)
+    g2 = torch.from_numpy(bench4_1080).to(dev)
+    gc2 = torch.from_numpy(clutter_1080[None]).to(dev)
     k_cap = 32768                          # auto max_points at 1280x800
     p_cap = qf.QuadFitConfig(max_points=k_cap).max_boundary_pixels
+    k_cap2 = 131072                        # auto max_points at 1920x1080
+    p_cap2 = qf.QuadFitConfig(max_points=k_cap2).max_boundary_pixels
 
-    def record(name, src, replaces, err, kernel, plain):
+    def record(name, src, replaces, err, kernel, plain, at):
         results.append(dict(
             name=name, route="cuda", source=f"ros_vision_tpu_torch/csrc/{src}",
             replaces=replaces, max_abs_err=err, ms=cuda_ms(kernel),
-            plain_ms=cuda_ms(plain)))
+            plain_ms=cuda_ms(plain), at=at))
 
-    # K1
+    def flat_init(t):
+        b, h, w = t.shape
+        idx = torch.arange(h * w, dtype=torch.int32, device=dev)
+        return idx.view(1, h, w).expand(b, h, w).contiguous()
+
+    # K1, also at 1920x1080
     err = max(max_abs_err("adaptive_threshold", tk.adaptive_threshold_fused(g),
-                          tk.adaptive_threshold_plain(g)) for g in (g4, gc))
+                          tk.adaptive_threshold_plain(g))
+              for g in (g4, gc, g2, gc2))
     record("adaptive_threshold", "threshold.cu",
            "ros_vision_tpu/ops/threshold_pallas.py:122", err,
            lambda: tk.adaptive_threshold_fused(g4),
-           lambda: tk.adaptive_threshold_plain(g4))
+           lambda: tk.adaptive_threshold_plain(g4), "1280x800 B=4")
+    ms = cuda_ms(lambda: tk.adaptive_threshold_fused(g2))
+    plain_ms = cuda_ms(lambda: tk.adaptive_threshold_plain(g2))
+    print(f"  adaptive_threshold at 1920x1080 B=4: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
     _, t4 = tk.adaptive_threshold_plain(g4)
     _, tc = tk.adaptive_threshold_plain(gc)
+    _, t2 = tk.adaptive_threshold_plain(g2)
+    _, tc2 = tk.adaptive_threshold_plain(gc2)
 
     # K2 (labels, sizes and ranks; the clutter frame overflows the ranks)
     err = max(max_abs_err("rank_image", fk.label_components(t),
@@ -141,28 +191,43 @@ def kernel_phase(dev, bench4, clutter):
     print(f"  clutter frame: max rank {nblobs} (rank space 2048)")
     record("rank_image", "ccl.cu",
            "ros_vision_tpu/ops/frontend_pallas.py:505", err,
-           lambda: fk.rank_image(t4), lambda: ccl.label_components(t4))
+           lambda: fk.rank_image(t4), lambda: ccl.label_components(t4),
+           "1280x800 B=4")
     r4 = ccl.label_components(t4)[2].view(t4.shape)
     rc = ccl.label_components(tc)[2].view(tc.shape)
+    r2 = ccl.label_components(t2)[2].view(t2.shape)
+    rc2 = ccl.label_components(tc2)[2].view(tc2.shape)
+    print(f"  1920x1080 frames: max rank {r2.amax(dim=(1, 2)).tolist()} "
+          f"(bench), {int(rc2.max().item())} (clutter; rank space 2048)")
+    check(int(rc2.max().item()) == ccl.MAX_BLOBS,
+          "the 1920x1080 clutter frame does not overflow the rank space")
 
-    # K3 (the bench scene and the clutter frame overflow the caps)
+    # K3 (the bench scene and the clutter frame overflow the caps), also
+    # at 960x540 where the stage-A cap clamps to 80 rows
     err = 0.0
-    for t, r in ((t4, r4), (tc, rc)):
-        key, pack2, counts = fk.boundary_compact(t, r, p_cap, k_cap)
+    for t, r, pc, kc in ((t4, r4, p_cap, k_cap), (tc, rc, p_cap, k_cap),
+                         (t2, r2, p_cap2, k_cap2), (tc2, rc2, p_cap2, k_cap2)):
+        key, pack2, counts = fk.boundary_compact(t, r, pc, kc)
         pts, cref = qf.boundary_points_capped(
-            t, r.reshape(r.shape[0], -1), p_cap, k_cap)
+            t, r.reshape(r.shape[0], -1), pc, kc)
         err = max(err, max_abs_err("boundary_compact", (key, pack2, counts),
                                    (pts["key"], pts["pack2"], cref)))
         maskbits, _ = qf.boundary_masks(t, r)
         emitting = ((maskbits & 0xF) != 0).sum(dim=(1, 2)).tolist()
-        print(f"  boundary: emitting px {emitting} (stage-A cap "
-              f"{qf.boundary_block_rows(p_cap, t.shape[2]) * t.shape[2]}),"
-              f" points {counts.tolist()} (cap {k_cap})")
+        print(f"  boundary {t.shape[2]}x{t.shape[1]}: emitting px {emitting}"
+              f" (stage-A cap "
+              f"{qf.boundary_block_rows(pc, t.shape[2]) * t.shape[2]}),"
+              f" points {counts.tolist()} (cap {kc})")
     record("boundary_compact", "boundary.cu",
            "ros_vision_tpu/ops/frontend_pallas.py:749", err,
            lambda: fk.boundary_compact(t4, r4, p_cap, k_cap),
            lambda: qf.boundary_points_capped(t4, r4.reshape(4, -1), p_cap,
-                                             k_cap))
+                                             k_cap), "1280x800 B=4")
+    ms = cuda_ms(lambda: fk.boundary_compact(t2, r2, p_cap2, k_cap2))
+    plain_ms = cuda_ms(lambda: qf.boundary_points_capped(
+        t2, r2.reshape(4, -1), p_cap2, k_cap2))
+    print(f"  boundary_compact at 1920x1080 B=4: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
 
     # K4: the segment ids cluster_and_fit feeds it, at the narrow (8192)
     # and full (32768) widths, plus out-of-range values
@@ -180,12 +245,65 @@ def kernel_phase(dev, bench4, clutter):
     record("value_histogram", "histogram.cu",
            "ros_vision_tpu/ops/gather_pallas.py:168", err,
            lambda: gk.histogram(seg_n, 1025),
-           lambda: gk.value_histogram_plain(seg_n, 1025))
+           lambda: gk.value_histogram_plain(seg_n, 1025), "1280x800 B=4")
+
+    # K6 at 960x540: flat indices (the labels of label_components_flood),
+    # the packed per-root table (its broadcast="flood"; INT32_MAX off the
+    # roots), and the clutter frame
+    n2 = t2.shape[1] * t2.shape[2]
+    init2, initc2 = flat_init(t2), flat_init(tc2)
+    lab2 = ccl.propagate_fixpoint(t2, init2).view(4, n2)
+    labc2 = ccl.propagate_fixpoint(tc2, initc2).view(1, n2)
+    counts2 = ccl.label_histogram(lab2)
+    packed2 = ccl.packed_root_table(counts2, 25).view(t2.shape)
+    err = max(max_abs_err("propagate_fixpoint",
+                          (ck.propagate_fixpoint(t, v),),
+                          (ccl.propagate_fixpoint(t, v),))
+              for t, v in ((t2, init2), (t2, packed2), (tc2, initc2)))
+    record("propagate_fixpoint", "flood.cu",
+           "ros_vision_tpu/ops/ccl_pallas.py:312", err,
+           lambda: ck.propagate_fixpoint(t2, init2),
+           lambda: ccl.propagate_fixpoint(t2, init2), "1920x1080 B=4")
+
+    # K7 on converged labels and on random labels, some outside [0, N)
+    rnd = rng.integers(-1000, n2 + 5000, (4, n2)).astype(np.int32)
+    rnd[:, :3] = [-1, n2, 2 ** 31 - 1]
+    rnd = torch.from_numpy(rnd).to(dev)
+    err = max(max_abs_err("label_histogram", (ck.label_histogram(v),),
+                          (ccl.label_histogram(v),))
+              for v in (lab2, labc2, rnd))
+    record("label_histogram", "flood.cu",
+           "ros_vision_tpu/ops/ccl_pallas.py:376", err,
+           lambda: ck.label_histogram(lab2),
+           lambda: ccl.label_histogram(lab2), "1920x1080 B=4")
+
+    # K12 at n = 518,400: the rank table of the bench labels, and random
+    # labels (some outside [0, N)) over a random table
+    rank_v2 = ccl.dense_ranks(counts2 >= 25)
+    rnd_v = torch.from_numpy(rng.integers(0, 2049, (4, n2),
+                                          dtype=np.int32)).to(dev)
+    err = max(max_abs_err("rank_gather", (gk.rank_gather(lab, tab),),
+                          (gk.rank_gather_plain(lab, tab),))
+              for lab, tab in ((lab2, rank_v2), (rnd, rnd_v)))
+    record("rank_gather", "gather.cu",
+           "ros_vision_tpu/ops/gather_pallas.py:340", err,
+           lambda: gk.rank_gather(lab2, rank_v2),
+           lambda: gk.rank_gather_plain(lab2, rank_v2), "1920x1080 B=4")
+
+    # K8 at 1280x800 B=4: the hybrid CCL's first round (448 sweeps), 0, 1
+    init4 = flat_init(t4)
+    err = max(max_abs_err("propagate", (ck.propagate(t4, init4, k),),
+                          (ccl.propagate(t4, init4, k),))
+              for k in (448, 0, 1))
+    record("propagate", "flood.cu",
+           "ros_vision_tpu/ops/ccl_pallas.py:405", err,
+           lambda: ck.propagate(t4, init4, 448),
+           lambda: ccl.propagate(t4, init4, 448), "1280x800 B=4, 448 sweeps")
     for r in results:
         print(f"  {r['name']}: max abs err {r['max_abs_err']} (bit-exact); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (B=4, "
-              f"median of {REPS})")
-    return results
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+              f"({r['at']}, median of {REPS})")
+    return results, dict(t4=t4, t2=t2)
 
 
 def match_corners(dets, placed_list, tol: float, what: str) -> float:
@@ -201,13 +319,14 @@ def match_corners(dets, placed_list, tol: float, what: str) -> float:
     return worst
 
 
-def detector_phase(dev, bench4, placed):
+def detector_phase(dev, bench4, placed, must: set):
     import torch
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.apriltag.detector import TorchDetector
 
-    kw = dict(width=W, height=H, fx=900.0, fy=900.0, cx=640.0, cy=400.0,
-              estimate_pose=True)
+    _, height, width = bench4.shape
+    kw = dict(width=width, height=height, fx=900.0, fy=900.0,
+              cx=width / 2, cy=height / 2, estimate_pose=True)
     det = TorchDetector(device=dev, **kw)
     cpu = TorchDetector(device="cpu", **kw)
     det.detect(bench4)                                    # warm-up
@@ -247,9 +366,49 @@ def detector_phase(dev, bench4, placed):
               f"{REPS}, host clock incl. sync), {syncs} host syncs/call")
     counts = _build.counts()
     print(f"  launches in the detector phase: {counts}")
-    check(all(c > 0 for c in counts.values()) and len(counts) == 4,
-          f"a kernel was not launched: {counts}")
-    return out
+    check_kernel_set(f"detector {width}x{height}", counts, must)
+    return out, counts
+
+
+def ccl_paths_phase(t4, t2):
+    """The ops/ccl.py entry points off the detector: each run with the
+    counts reset, its launches read, and its output held against the
+    plain CCL (ccl.label_components) on the card."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.device import HostSyncs
+    from ros_vision_tpu_torch.ops import ccl
+
+    paths = {
+        "label_components_hybrid (1280x800 B=4)":
+            (lambda syncs: ccl.label_components_hybrid(t4, syncs=syncs),
+             lambda: ccl.label_components(t4), {"propagate"}),
+        "flood_ranks (1920x1080 B=4)":
+            (lambda syncs: (ccl.flood_ranks(t2),),
+             lambda: ccl.label_components(t2)[2:],
+             {"propagate_fixpoint", "label_histogram", "rank_gather"}),
+        "label_components_flood broadcast=flood (1920x1080 B=4)":
+            (lambda syncs: ccl.label_components_flood(t2, broadcast="flood"),
+             lambda: ccl.label_components(t2),
+             {"propagate_fixpoint", "label_histogram"}),
+    }
+    launches = {}
+    for name, (run, plain, must) in paths.items():
+        syncs = HostSyncs()
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        got = run(syncs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.counts()
+        max_abs_err(name, got, plain())
+        check_kernel_set(name, counts, must)
+        print(f"  {name}: bit-exact vs the plain CCL; {ms:.3f} ms (one "
+              f"call, host clock incl. sync), {syncs.count} host syncs; "
+              f"launches {counts}")
+        launches[name] = counts
+    return launches
 
 
 class RecordingSender:
@@ -344,8 +503,7 @@ def system_phase(dev, min_batches: int = 20):
     counts = _build.counts()
     check(batches >= min_batches, f"only {batches} batches spun")
     print(f"  launches in the system phase: {counts}")
-    check(all(c > 0 for c in counts.values()) and len(counts) == 4,
-          f"a kernel was not launched in the system run: {counts}")
+    check_kernel_set("system run", counts, PATH_800)
     lat = []
     for ident, loc in zip(scenes_ids, locs):
         vals = senders[loc].values
@@ -400,18 +558,28 @@ def main() -> int:
 
     bench = [bench_scene(seed) for seed in range(4)]
     bench4 = np.stack([img for img, _ in bench])
-    placed = bench[0][1]
-    clutter = clutter_frame()
+    bench_1080 = [bench_scene(seed, W2, H2, NOISE_1080) for seed in range(4)]
+    bench4_1080 = np.stack([img for img, _ in bench_1080])
 
     print("[kernels]")
-    kernels = kernel_phase(dev, bench4, clutter)
-    print("[detector]")
-    det = detector_phase(dev, bench4, placed)
+    kernels, planes = kernel_phase(dev, bench4, clutter_frame(), bench4_1080,
+                                   clutter_frame(width=W2, height=H2))
+    paths = {}
+    print(f"[detector {W}x{H}]")
+    det, paths["detector 1280x800"] = detector_phase(
+        dev, bench4, bench[0][1], PATH_800)
+    print(f"[detector {W2}x{H2}]")
+    det_1080, paths["detector 1920x1080"] = detector_phase(
+        dev, bench4_1080, bench_1080[0][1], PATH_1080)
+    print("[ccl entry points]")
+    paths.update(ccl_paths_phase(planes["t4"], planes["t2"]))
     print("[system]")
-    launches, system = system_phase(dev)
+    paths["system"], system = system_phase(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(c[k["name"]] for c in paths.values())
     print(json.dumps({"detector": {str(b): v for b, v in det.items()},
+                      "detector_1080": {str(b): v
+                                        for b, v in det_1080.items()},
                       "system": system}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,19 @@
 """PyTorch + CUDA port of the ros_vision_tpu AprilTag main path.
 
 The JAX package ``ros_vision_tpu`` stays the reference; this package runs
-the same detector in PyTorch. Every Pallas kernel on the 1280x800 tag36h11
-path has a hand-written CUDA C++ counterpart for Hopper (``csrc/*.cu``,
-compiled with nvcc for ``sm_90a`` at first use, see ``_build.py``):
+the same detector in PyTorch. Every Pallas kernel on the tag36h11 paths
+(1280x800 and 1920x1080) and of ops/ccl.py has a hand-written CUDA C++
+counterpart for Hopper (``csrc/*.cu``, compiled with nvcc for ``sm_90a``
+at first use, see ``_build.py``):
 
   K1  ops/threshold_kernel.py  <- ops/threshold_pallas.adaptive_threshold_fused
   K2  ops/frontend_kernel.py   <- ops/frontend_pallas.rank_image
   K3  ops/frontend_kernel.py   <- ops/frontend_pallas.boundary_compact
   K4  ops/gather_kernel.py     <- ops/gather_pallas.value_histogram
+  K6  ops/ccl_kernel.py        <- ops/ccl_pallas.propagate_fixpoint
+  K7  ops/ccl_kernel.py        <- ops/ccl_pallas.label_histogram
+  K8  ops/ccl_kernel.py        <- ops/ccl_pallas.propagate
+  K12 ops/gather_kernel.py     <- ops/gather_pallas.rank_gather
 
 A kernel wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; there is no other switch and no

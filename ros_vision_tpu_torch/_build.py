@@ -1,13 +1,14 @@
 """First-use build of the CUDA kernels and their ctypes binding.
 
-All of ``csrc/*.cu`` is compiled by one ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds, not minutes) under ``build/ros_vision_tpu_torch/`` beside the
-package, named by a hash of the sources and flags so an edited source is
-never served a stale binary. Nothing is compiled at import: the first
-kernel launch builds and loads the library. Each C launcher enqueues on
-the stream it is given, allocates nothing, and returns
-``cudaGetLastError()``; :func:`launch` raises on anything but 0.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds, not minutes)
+under ``build/ros_vision_tpu_torch/`` beside the package, named by a hash
+of the sources and flags so an edited source is never served a stale
+binary. Nothing is compiled at import: the first kernel launch builds and
+loads the library. Each C launcher enqueues on the stream it is given,
+allocates nothing, and returns ``cudaGetLastError()``; :func:`launch`
+raises on anything but 0.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "ros_vision_tpu_torch"
 # no --use_fast_math: the thinning selection in boundary.cu needs IEEE
 # division and round-to-nearest products (nvcc's defaults)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,14 @@ _SIGNATURES = {
     "rvt_boundary_compact": [_P] * 9 + [_I] * 5,
     # values, out, b, k, num_values
     "rvt_value_histogram": [_P] * 2 + [_I] * 3,
+    # threshim, values, labels, rootmin, out, b, h, w
+    "rvt_propagate_fixpoint": [_P] * 5 + [_I] * 3,
+    # labels, counts, b, n
+    "rvt_label_histogram": [_P] * 2 + [_I] * 2,
+    # threshim, labels, mask, scratch, out, b, h, w, n_sweeps
+    "rvt_propagate": [_P] * 5 + [_I] * 4,
+    # labels, rank_v, out, b, n
+    "rvt_rank_gather": [_P] * 3 + [_I] * 2,
 }
 
 
@@ -84,17 +93,34 @@ class KernelLibrary:
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+        tag = f"{out.stem}.{os.getpid()}"
+        cus = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
         t0 = time.monotonic()
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
-                           capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cus, objs)]
+        logs = []
+        for p, proc in zip(cus, procs):
+            text, _ = proc.communicate()
+            logs.append((p.name, text, proc.returncode))
+        tmp = out.with_name(f"{tag}.tmp")
+        link = None
+        if all(rc == 0 for _, _, rc in logs):
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(("link", link.stdout + link.stderr,
+                         link.returncode))
         self.build_seconds = time.monotonic() - t0
-        self.build_log = r.stdout + r.stderr
+        self.build_log = "".join(f"== {name} (exit {rc})\n{text}"
+                                 for name, text, rc in logs)
         (BUILD_DIR / "build.log").write_text(self.build_log)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n"
-                               f"{self.build_log}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{self.build_log}")
         os.replace(tmp, out)
         return out
 
@@ -168,3 +194,6 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements overflow the "
+                         "kernels' int32 indexing")

@@ -4,11 +4,14 @@ Counterpart of ros_vision_tpu/apriltag/detector.py (TPUDetector): a
 (B, H, W) uint8 batch of grayscale frames (one row per camera) becomes
 fixed-shape per-quad detection tensors — ids, corners, homographies,
 poses — packed into one (B, NQ, 36) f32 tensor for a single device->host
-copy. Stages: K1 threshold, K2 CCL ranks, K3 boundary compaction,
+copy. Stages: K1 threshold, CCL ranks, K3 boundary compaction,
 cluster_and_fit (K4 histograms), a loose decode screen, refine_edges,
-decode, duplicate reconcile and pose.
+decode, duplicate reconcile and pose. The CCL ranks come from the front
+end the JAX detector's TPU path takes for the frame size
+(ops/frontend_kernel.py frontend_route): K2 at 1280x800, the flood CCL
+(K6 + K7) at 1920x1080.
 
-On a CUDA tensor the four hand-written kernels run; on a CPU tensor their
+On a CUDA tensor the hand-written kernels run; on a CPU tensor their
 plain versions do. There is no other switch. PyTorch runs eagerly, so the
 JAX package's device-side lax.cond/lax.switch choices become host reads
 (counted in `host_syncs`); each branch computes exactly what the JAX

@@ -13,7 +13,8 @@
 // The TPU kernel min-floods labels to fixpoint (~200-300 full-frame sweeps
 // on a noisy 400x640 frame) because the TPU has no fast atomics. Here the
 // union-find of the reference (labeling_allegretti_2019_BKE.cu) replaces
-// the flood: one merge launch in which every pixel unions itself with its
+// the flood (unionfind.cuh, shared with flood.cu): init, then one merge
+// launch in which every pixel unions itself with its
 // already-visited neighbours (left, up, and for white up-left / up-right)
 // by an atomicMin loop that always links the larger root under the
 // smaller, so every root is its component's minimum flat index; one
@@ -23,76 +24,14 @@
 // hand-written exclusive scan of is_big_root in flat order (per-block
 // counts, one block per row scanning them, then the write); one broadcast
 // launch rank[p] = rank_at_root[label[p]]. Eight launches per call, each a
-// single pass over the (B, H*W) planes. Reads inside the union loop go
-// through L2 (__ldcg): the labels change under atomics from other SMs.
+// single pass over the (B, H*W) planes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "scan.cuh"
+#include "unionfind.cuh"
 
 namespace {
-
-__device__ __forceinline__ int uf_find(const int* L, int x) {
-  int p = __ldcg(L + x);
-  while (p != x) {
-    x = p;
-    p = __ldcg(L + x);
-  }
-  return x;
-}
-
-__device__ void uf_union(int* L, int a, int b) {
-  bool done;
-  do {
-    a = uf_find(L, a);
-    b = uf_find(L, b);
-    if (a < b) {
-      const int old = atomicMin(L + b, a);
-      done = (old == b);
-      b = old;
-    } else if (b < a) {
-      const int old = atomicMin(L + a, b);
-      done = (old == a);
-      a = old;
-    } else {
-      done = true;
-    }
-  } while (!done);
-}
-
-__global__ void init_kernel(int* labels, int n, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) labels[i] = i % n;
-}
-
-__global__ void merge_kernel(const uint8_t* __restrict__ thr, int* labels,
-                             int h, int w) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  if (x >= w) return;
-  const size_t base = (size_t)b * h * w;
-  const uint8_t* t = thr + base;
-  int* L = labels + base;
-  const int p = y * w + x;
-  const int v = t[p];
-  if (v == 127) return;
-  if (x > 0 && t[p - 1] == v) uf_union(L, p, p - 1);
-  if (y > 0) {
-    if (t[p - w] == v) uf_union(L, p, p - w);
-    if (v == 255) {
-      if (x > 0 && t[p - w - 1] == 255) uf_union(L, p, p - w - 1);
-      if (x + 1 < w && t[p - w + 1] == 255) uf_union(L, p, p - w + 1);
-    }
-  }
-}
-
-__global__ void compress_kernel(int* labels, int n, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int* L = labels + (size_t)(i / n) * n;
-  L[i % n] = uf_find(L, i % n);
-}
 
 // size_root[b, label] += 1 per pixel; lanes of a warp that share a label
 // add once through their leader.
@@ -184,15 +123,10 @@ extern "C" int rvt_rank_image(const uint8_t* thr, int* labels,
   err = cudaGetLastError();                           \
   if (err != cudaSuccess) return (int)err
 
-  init_kernel<<<g1, t1, 0, stream>>>(labels, n, total);
-  RVT_CHECK();
+  err = rvt::label_pixels(thr, labels, b, h, w, stream);
+  if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(size_root, 0, sizeof(int) * (size_t)total, stream);
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<dim3((w + 127) / 128, h, b), 128, 0, stream>>>(thr, labels,
-                                                                 h, w);
-  RVT_CHECK();
-  compress_kernel<<<g1, t1, 0, stream>>>(labels, n, total);
-  RVT_CHECK();
   size_kernel<<<g1, t1, 0, stream>>>(labels, size_root, n, total);
   RVT_CHECK();
   rank_count_kernel<<<dim3(nblk, b), rvt::kScanThreads, 0, stream>>>(

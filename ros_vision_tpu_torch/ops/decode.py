@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ros_vision_tpu.apriltag.families import TagFamily
+from ros_vision_tpu_torch.ops import mathf
 
 QUAD_DECIMATE = 2
 DECODE_SHARPENING = 0.25
@@ -198,9 +199,9 @@ def _refine_edges_core(gray, corners, quad_valid, intr, dist, n_alpha: int,
     cxy = (m[..., 3] / n_safe
            - (m[..., 0] / n_safe) * (m[..., 1] / n_safe))
     cyy = m[..., 4] / n_safe - (m[..., 1] / n_safe) ** 2
-    theta = 0.5 * torch.atan2(-2 * cxy, cyy - cxx)
-    lnx = torch.cos(theta)
-    lny = torch.sin(theta)
+    theta = 0.5 * mathf.atan2(-2 * cxy, cyy - cxx)
+    lnx = mathf.cos(theta)
+    lny = mathf.sin(theta)
 
     out = corners.clone()
     for i in range(4):
@@ -431,8 +432,8 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
 
     # canonical-orientation homography: H' = H @ Rz(-rotation * 90deg)
     theta = -rotation.to(torch.float32) * (math.pi / 2)
-    c = torch.cos(theta)
-    s = torch.sin(theta)
+    c = mathf.cos(theta)
+    s = mathf.sin(theta)
     zero = torch.zeros_like(c)
     one = torch.ones_like(c)
     R = torch.stack([

@@ -5,6 +5,14 @@ boundary_compact. A CUDA tensor launches csrc/ccl.cu / csrc/boundary.cu;
 a CPU tensor runs the plain versions (ops/ccl.py label_components and
 ops/quadfit.py boundary_points_capped). Outputs are bit-identical either
 way, including overflow at both boundary caps.
+
+frontend() takes its ranks from the CCL the JAX detector's TPU path picks
+for the frame size (frontend_route): K2 for lane-aligned frames up to 2^18
+decimated pixels and for frames of 2^19 and above, the flood CCL (K6 + K7,
+ops/ccl.py label_components_flood) in between, 1920x1080 among them. K3
+compacts the boundary points in every case: the JAX package used the XLA
+sort compaction for the flood branch only because its Pallas routing
+needs lane-aligned planes, and both compute one contract.
 """
 from __future__ import annotations
 
@@ -101,10 +109,25 @@ def boundary_compact(threshim: torch.Tensor, ranks: torch.Tensor,
                                  p_cap, k_cap)
 
 
+def frontend_route(h: int, w: int) -> str:
+    """The front end the JAX detector's TPU path takes for an (h, w)
+    decimated frame (ros_vision_tpu/apriltag/detector.py:256-258,
+    :396-398): "fused" (lane-aligned, <= 2^18 px), "flood" (< 2^19 px) or
+    "large"."""
+    n = h * w
+    if w % 128 == 0 and h % 8 == 0 and n <= 1 << 18:
+        return "fused"
+    return "flood" if n < 1 << 19 else "large"
+
+
 def frontend(threshim: torch.Tensor, max_points: int,
              max_boundary_pixels: int):
-    """Threshold image -> ({key, pack2} (B, max_points), counts (B,))."""
-    ranks = rank_image(threshim)
+    """Threshold image -> ({key, pack2} (B, max_points), counts (B,)),
+    ranks from the CCL that frontend_route picks."""
+    if frontend_route(*threshim.shape[1:]) == "flood":
+        ranks = ccl.label_components_flood(threshim)[2].view(threshim.shape)
+    else:
+        ranks = rank_image(threshim)
     key, pack2, counts = boundary_compact(threshim, ranks,
                                           max_boundary_pixels, max_points)
     return {"key": key, "pack2": pack2}, counts

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ros_vision_tpu_torch.ops import mathf
 from ros_vision_tpu_torch.ops.decode import project
 
 
@@ -117,8 +118,8 @@ def _axis_rotation(axis, ang):
         torch.stack([z, zero, -x], -1),
         torch.stack([-y, x, zero], -1)], -2)
     eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
-    s = torch.sin(ang)[..., None, None]
-    c = (1 - torch.cos(ang))[..., None, None]
+    s = mathf.sin(ang)[..., None, None]
+    c = (1 - mathf.cos(ang))[..., None, None]
     return eye + s * K + c * torch.einsum("...ij,...jk->...ik", K, K)
 
 
@@ -149,7 +150,7 @@ def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
     axis = _cross(tn, normal)
     sin_a = torch.linalg.norm(axis, dim=-1)
     cos_a = (tn * normal).sum(-1)
-    ang = -2.0 * torch.atan2(sin_a, cos_a)
+    ang = -2.0 * mathf.atan2(sin_a, cos_a)
     axis = axis / sin_a.clamp_min(1e-9)[..., None]
     r2_init = torch.einsum("...ij,...jk->...ik", _axis_rotation(axis, ang),
                            r1)

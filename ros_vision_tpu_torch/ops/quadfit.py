@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ros_vision_tpu_torch.ops import scan
+from ros_vision_tpu_torch.ops import mathf, scan
 from ros_vision_tpu_torch.ops import segments as segs
 from ros_vision_tpu_torch.ops.gather_kernel import histogram
 
@@ -105,9 +105,9 @@ def fit_line_f32(m: torch.Tensor, n: torch.Tensor) -> dict:
     cxx = m[..., 2] / w - ex * ex
     cxy = m[..., 3] / w - ex * ey
     cyy = m[..., 4] / w - ey * ey
-    theta = 0.5 * torch.atan2(-2 * cxy, cyy - cxx)
-    nx = torch.cos(theta)
-    ny = torch.sin(theta)
+    theta = 0.5 * mathf.atan2(-2 * cxy, cyy - cxx)
+    nx = mathf.cos(theta)
+    ny = mathf.sin(theta)
     mse = nx * nx * cxx + 2 * nx * ny * cxy + ny * ny * cyy
     return {"ex": ex, "ey": ey, "nx": nx, "ny": ny,
             "err": n * mse, "mse": mse}
@@ -296,7 +296,7 @@ def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
     seg_ok[:, nseg] = False
 
     # ---- theta sort within segments (seg << 20 | theta fixed point) -----
-    theta = torch.atan2(dyp, dxp)
+    theta = mathf.atan2(dyp, dxp)
     theta_fx = ((theta + math.pi) * (2 ** 20 / (2 * math.pi))).to(i32) \
         .clamp(0, 2 ** 20 - 1)
     sort_key = (torch.where(valid_pt, seg, nseg) << 20) | theta_fx
