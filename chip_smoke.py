@@ -7,26 +7,35 @@ Needs one CUDA card; without one it exits nonzero and prints no result.
 Phases, each of which raises (and so exits nonzero) on failure:
   1. build the kernels (one nvcc per csrc/*.cu, all started together,
      sm_90a) from the checkout;
-  2. kernel checks: each of the eight kernels against its plain PyTorch
+  2. kernel checks: each of the eleven kernels against its plain PyTorch
      version on the card, bit-exact, with the median of 20 CUDA event
-     timings of each. K1-K4 at the 1280x800 tag36h11 path's shapes (the
-     4-tag bench scene at B=4 with four noise seeds, plus one cluttered
-     frame that overflows both boundary caps); K1 and K3 again at
-     1920x1080; K6, K7 and K12 at 1920x1080 (bench scene B=4 and a
-     cluttered frame past the 2048-blob rank space); K8 at 1280x800 B=4
-     with 448, 0 and 1 sweeps;
+     timings of it, of its plain version and, where one PyTorch call
+     computes the same function, of that call, beside its bound (bytes
+     over the HBM rate or operations over the core rate). K1-K4 at the
+     1280x800 tag36h11 path's shapes (the 4-tag bench scene at B=4 with
+     four noise seeds, plus one cluttered frame that overflows both
+     boundary caps); K1 and K3 again at 1920x1080; K6, K7 and K12 at
+     1920x1080 (bench scene B=4 and a cluttered frame past the 2048-blob
+     rank space); K8 at 1280x800 B=4 with 448, 0 and 1 sweeps; K9 on the
+     operands of cluster_and_fit's four sorts at K = 8192, 32768 and
+     131072 plus random, duplicate, sentinel, K=1000 and payload rows;
+     K10 at B=4 S=1025 C=4 K=32768; K11 at B=4 K=131072 S=1025;
   3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
      on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
      every row, corners within 0.1 px of the same detector's plain path on
      the CPU and within 1 px of the rendered corners, and exactly the
      front end's kernel set launched (K2 at 1280x800, K6 + K7 at
-     1920x1080);
+     1920x1080); then TorchDetector(use_pallas_sort=True) at B=4 at both
+     sizes, its packed output bit-identical to the default's, its kernel
+     set the path's plus K9 with 4 K9 launches per call;
   4. the other ops/ccl.py entry points: label_components_hybrid (K8),
      flood_ranks (K6, K7, K12) and label_components_flood with
      broadcast="flood" (K6, K7), each held against the plain CCL;
   5. system: the port's VisionSystem with 4 mock cameras at 1280x800, each
      showing its own tags, spun for >= 20 batches; each camera publishes
      its own ids with finite robot-frame poses.
+K10 and K11 have no caller on any path (nor in the JAX package outside
+its tests), so their launches read 0.
 Every path of phases 3-5 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
 The line before the last is a JSON object of per-kernel results; the last
@@ -53,6 +62,11 @@ W2, H2 = 1920, 1080
 # JAX detector finds none of the tags there; sigma 0.75 keeps all four.
 NOISE_1080 = 0.75
 REPS = 20
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes per second and float32 operations per second outside the tensor
+# cores (the rate bound_ms uses for the integer and float work here)
+HBM_BYTES_S = 3.35e12
+CORE_OPS_S = 67e12
 # kernels each path must launch; every other kernel must not launch there
 PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
             "value_histogram"}
@@ -69,7 +83,7 @@ def bench_scene(seed: int, width: int = W, height: int = H,
                 noise: float = 1.0):
     """The bench.py scene (4 tags at 1280x800, noise sigma 1), its layout
     scaled by width / 1280 for other frame sizes."""
-    from ros_vision_tpu.apriltag.render import (render_scene,
+    from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                 simple_square_corners)
     s = width / W
     return render_scene(
@@ -122,18 +136,38 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 def max_abs_err(name: str, got, want) -> float:
     """Max abs difference of each output from its plain version; raises
     unless every output is bit-exact (same shape and dtype, zero
-    difference)."""
+    difference; float outputs are compared by their bits)."""
     import torch
     err = 0.0
     for g, w in zip(got, want, strict=True):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} "
               f"{w.dtype}")
+        if g.dtype.is_floating_point:
+            g = g.contiguous().view(torch.int32)
+            w = w.contiguous().view(torch.int32)
         d = (g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
         check(d == 0 and torch.equal(g, w),
               f"{name} differs from its plain version (max abs err {d})")
         err = max(err, float(d))
     return err
+
+
+def bound_ms(inputs, outputs, ops: float = 0.0):
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM_BYTES_S and
+    the operations over CORE_OPS_S. -> (ms, "bytes" or "operations")."""
+    import torch
+
+    def nbytes(ts):
+        if isinstance(ts, torch.Tensor):
+            return ts.numel() * ts.element_size()
+        return sum(nbytes(t) for t in ts)
+
+    t_bytes = (nbytes(inputs) + nbytes(outputs)) / HBM_BYTES_S
+    t_ops = ops / CORE_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
@@ -144,6 +178,7 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     from ros_vision_tpu_torch.ops import gather_kernel as gk
     from ros_vision_tpu_torch.ops import quadfit as qf
     from ros_vision_tpu_torch.ops import segments as segs
+    from ros_vision_tpu_torch.ops import sort_kernel as sk
     from ros_vision_tpu_torch.ops import threshold_kernel as tk
 
     results = []
@@ -156,11 +191,17 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     k_cap2 = 131072                        # auto max_points at 1920x1080
     p_cap2 = qf.QuadFitConfig(max_points=k_cap2).max_boundary_pixels
 
-    def record(name, src, replaces, err, kernel, plain, at):
+    def record(name, src, replaces, err, kernel, plain, at, inputs,
+               library=None, ops=0.0):
+        """Time the kernel, its plain version and (where one PyTorch call
+        computes the same function) the library call on the same inputs;
+        the bound from the inputs and the kernel's outputs."""
+        bound, by = bound_ms(inputs, kernel(), ops)
         results.append(dict(
             name=name, route="cuda", source=f"ros_vision_tpu_torch/csrc/{src}",
             replaces=replaces, max_abs_err=err, ms=cuda_ms(kernel),
-            plain_ms=cuda_ms(plain), at=at))
+            plain_ms=cuda_ms(plain), bound_ms=bound, bound_by=by,
+            library_ms=None if library is None else cuda_ms(library), at=at))
 
     def flat_init(t):
         b, h, w = t.shape
@@ -174,33 +215,36 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     record("adaptive_threshold", "threshold.cu",
            "ros_vision_tpu/ops/threshold_pallas.py:122", err,
            lambda: tk.adaptive_threshold_fused(g4),
-           lambda: tk.adaptive_threshold_plain(g4), "1280x800 B=4")
+           lambda: tk.adaptive_threshold_plain(g4), "1280x800 B=4", [g4])
     ms = cuda_ms(lambda: tk.adaptive_threshold_fused(g2))
     plain_ms = cuda_ms(lambda: tk.adaptive_threshold_plain(g2))
     print(f"  adaptive_threshold at 1920x1080 B=4: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms")
-    _, t4 = tk.adaptive_threshold_plain(g4)
+    d4, t4 = tk.adaptive_threshold_plain(g4)
     _, tc = tk.adaptive_threshold_plain(gc)
-    _, t2 = tk.adaptive_threshold_plain(g2)
+    d2, t2 = tk.adaptive_threshold_plain(g2)
     _, tc2 = tk.adaptive_threshold_plain(gc2)
 
     # K2 (labels, sizes and ranks; the clutter frame overflows the ranks)
     err = max(max_abs_err("rank_image", fk.label_components(t),
-                          ccl.label_components(t)) for t in (t4, tc))
-    nblobs = int(ccl.label_components(tc)[2].max().item())
+                          fk.label_components_plain(t)) for t in (t4, tc))
+    nblobs = int(fk.label_components_plain(tc)[2].max().item())
     print(f"  clutter frame: max rank {nblobs} (rank space 2048)")
     record("rank_image", "ccl.cu",
            "ros_vision_tpu/ops/frontend_pallas.py:505", err,
-           lambda: fk.rank_image(t4), lambda: ccl.label_components(t4),
-           "1280x800 B=4")
-    r4 = ccl.label_components(t4)[2].view(t4.shape)
-    rc = ccl.label_components(tc)[2].view(tc.shape)
-    r2 = ccl.label_components(t2)[2].view(t2.shape)
-    rc2 = ccl.label_components(tc2)[2].view(tc2.shape)
+           lambda: fk.rank_image(t4), lambda: fk.label_components_plain(t4),
+           "1280x800 B=4", [t4])
+    r4 = fk.label_components_plain(t4)[2].view(t4.shape)
+    rc = fk.label_components_plain(tc)[2].view(tc.shape)
+    r2 = fk.label_components_plain(t2)[2].view(t2.shape)
+    rc2 = fk.label_components_plain(tc2)[2].view(tc2.shape)
     print(f"  1920x1080 frames: max rank {r2.amax(dim=(1, 2)).tolist()} "
           f"(bench), {int(rc2.max().item())} (clutter; rank space 2048)")
     check(int(rc2.max().item()) == ccl.MAX_BLOBS,
           "the 1920x1080 clutter frame does not overflow the rank space")
+    # the entry point keeps the JAX package's packing: rank 2048 -> -2048
+    check(int(ccl.label_components(tc2)[2].min().item()) == -ccl.MAX_BLOBS,
+          "ccl.label_components does not return -2048 for the 2048th blob")
 
     # K3 (the bench scene and the clutter frame overflow the caps), also
     # at 960x540 where the stage-A cap clamps to 80 rows
@@ -222,7 +266,7 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            "ros_vision_tpu/ops/frontend_pallas.py:749", err,
            lambda: fk.boundary_compact(t4, r4, p_cap, k_cap),
            lambda: qf.boundary_points_capped(t4, r4.reshape(4, -1), p_cap,
-                                             k_cap), "1280x800 B=4")
+                                             k_cap), "1280x800 B=4", [t4, r4])
     ms = cuda_ms(lambda: fk.boundary_compact(t2, r2, p_cap2, k_cap2))
     plain_ms = cuda_ms(lambda: qf.boundary_points_capped(
         t2, r2.reshape(4, -1), p_cap2, k_cap2))
@@ -242,10 +286,14 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     err = max(max_abs_err("value_histogram", (gk.histogram(v, 1025),),
                           (gk.value_histogram_plain(v, 1025),))
               for v in (seg_n, seg, odd))
+    hist_out = torch.zeros((4, 1025), dtype=torch.int32, device=dev)
+    seg_n64 = seg_n.to(torch.int64)
+    ones_n = torch.ones_like(seg_n)
     record("value_histogram", "histogram.cu",
            "ros_vision_tpu/ops/gather_pallas.py:168", err,
            lambda: gk.histogram(seg_n, 1025),
-           lambda: gk.value_histogram_plain(seg_n, 1025), "1280x800 B=4")
+           lambda: gk.value_histogram_plain(seg_n, 1025), "1280x800 B=4",
+           [seg_n], library=lambda: hist_out.scatter_add_(1, seg_n64, ones_n))
 
     # K6 at 960x540: flat indices (the labels of label_components_flood),
     # the packed per-root table (its broadcast="flood"; INT32_MAX off the
@@ -263,7 +311,8 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     record("propagate_fixpoint", "flood.cu",
            "ros_vision_tpu/ops/ccl_pallas.py:312", err,
            lambda: ck.propagate_fixpoint(t2, init2),
-           lambda: ccl.propagate_fixpoint(t2, init2), "1920x1080 B=4")
+           lambda: ccl.propagate_fixpoint(t2, init2), "1920x1080 B=4",
+           [t2, init2])
 
     # K7 on converged labels and on random labels, some outside [0, N)
     rnd = rng.integers(-1000, n2 + 5000, (4, n2)).astype(np.int32)
@@ -272,10 +321,14 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     err = max(max_abs_err("label_histogram", (ck.label_histogram(v),),
                           (ccl.label_histogram(v),))
               for v in (lab2, labc2, rnd))
+    lab2_64 = lab2.to(torch.int64)
+    ones2 = torch.ones_like(lab2)
+    lhist_out = torch.zeros_like(lab2)
     record("label_histogram", "flood.cu",
            "ros_vision_tpu/ops/ccl_pallas.py:376", err,
            lambda: ck.label_histogram(lab2),
-           lambda: ccl.label_histogram(lab2), "1920x1080 B=4")
+           lambda: ccl.label_histogram(lab2), "1920x1080 B=4", [lab2],
+           library=lambda: lhist_out.scatter_add_(1, lab2_64, ones2))
 
     # K12 at n = 518,400: the rank table of the bench labels, and random
     # labels (some outside [0, N)) over a random table
@@ -288,9 +341,12 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     record("rank_gather", "gather.cu",
            "ros_vision_tpu/ops/gather_pallas.py:340", err,
            lambda: gk.rank_gather(lab2, rank_v2),
-           lambda: gk.rank_gather_plain(lab2, rank_v2), "1920x1080 B=4")
+           lambda: gk.rank_gather_plain(lab2, rank_v2), "1920x1080 B=4",
+           [lab2, rank_v2],
+           library=lambda: torch.gather(rank_v2, 1, lab2_64))
 
-    # K8 at 1280x800 B=4: the hybrid CCL's first round (448 sweeps), 0, 1
+    # K8 at 1280x800 B=4: the hybrid CCL's first round (448 sweeps), 0, 1;
+    # its least work is 8 neighbour mins per pixel per sweep
     init4 = flat_init(t4)
     err = max(max_abs_err("propagate", (ck.propagate(t4, init4, k),),
                           (ccl.propagate(t4, init4, k),))
@@ -298,12 +354,144 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     record("propagate", "flood.cu",
            "ros_vision_tpu/ops/ccl_pallas.py:405", err,
            lambda: ck.propagate(t4, init4, 448),
-           lambda: ccl.propagate(t4, init4, 448), "1280x800 B=4, 448 sweeps")
+           lambda: ccl.propagate(t4, init4, 448), "1280x800 B=4, 448 sweeps",
+           [t4, init4], ops=448 * 8 * t4.numel())
+
+    # K9: the operands of cluster_and_fit's four sorts (use_pallas_sort)
+    # on the bench scenes at the narrow 1280x800 width (8192), the full
+    # 1280x800 width (32768) and 1920x1080 (131072)
+    key2, pack22, _ = fk.boundary_compact(t2, r2, p_cap2, k_cap2)
+    captured = {}
+    for label, pts, decim, k in (
+            ("1280x800 K=8192", {"key": key[:, :8192],
+                                 "pack2": pack2[:, :8192]}, d4, 8192),
+            ("1280x800 K=32768", {"key": key, "pack2": pack2}, d4, k_cap),
+            ("1920x1080 K=131072", {"key": key2, "pack2": pack22}, d2,
+             k_cap2)):
+        captured[label] = capture_sorts(pts, decim, k)
+    err = 0.0
+    for label, calls in captured.items():
+        check([(len(ops), nk) for ops, nk in calls]
+              == [(2, 2), (1, 1), (2, 2), (3, 3)],
+              f"{label}: cluster_and_fit sorts {[(len(o), nk) for o, nk in calls]}")
+        for ops, nk in calls:
+            err = max(err, sort_err(ops, nk))
+            print(f"  sort_tpu {label}, {len(ops)} operand(s): kernel "
+                  f"{cuda_ms(lambda: sk.sort_tpu(ops, nk)):.4f} ms, plain "
+                  f"{cuda_ms(lambda: sk.sort_plain(ops, nk)):.4f} ms")
+    def b4(lo, hi, k):
+        """(4, k) int32 uniform in [lo, hi) on the card."""
+        return torch.from_numpy(rng.integers(lo, hi, (4, k), dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    sentinel = torch.full((4, 32768), qf.KEY_INVALID, dtype=torch.int32,
+                          device=dev)
+    sentinel[:, ::700] = b4(0, 1 << 22, 32768)[:, ::700]
+    peak = [b4(0, 65, 1000), -b4(0, 1 << 30, 1000),
+            torch.arange(1000, dtype=torch.int32, device=dev).expand(
+                4, 1000).contiguous()]
+    for ops, nk in (([b4(0, 1 << 22, 131072), b4(0, 1 << 22, 131072)], 2),
+                    ([b4(0, 7, 32768), b4(0, 5, 32768)], 2),
+                    ([sentinel, torch.zeros_like(sentinel)], 2),
+                    (peak, 3), ([b4(-2 ** 31, 2 ** 31 - 1, 1000)], 1),
+                    ([b4(0, 50, 8192), b4(-1000, 1000, 8192)], 1)):
+        err = max(err, sort_err(ops, nk))
+    ops = captured["1920x1080 K=131072"][0][0]
+    packed = (ops[0].to(torch.int64) << 32) | ops[1].to(torch.int64)
+    record("sort_tpu", "sort.cu", "ros_vision_tpu/ops/sort_pallas.py:146",
+           err, lambda: sk.sort_tpu(ops, 2), lambda: sk.sort_plain(ops, 2),
+           "1920x1080 B=4 K=131072, (pair key, payload) as keys", ops,
+           library=lambda: torch.sort(packed, dim=1, stable=True),
+           ops=2 * ops[0].numel() * 17)
+
+    # K10 at the shape of cluster_and_fit's (B, NSEG1, 4) per-segment table
+    # gathered at its (B, 32768) segment ids; random indices (some outside
+    # [0, S)) over a table with -0.0, inf and NaN entries
+    table = torch.from_numpy(rng.normal(0, 100, (4, 1025, 4)).astype(
+        np.float32)).to(dev)
+    odd_tab = table.clone()
+    odd_tab[0, 5] = torch.tensor([-0.0, float("inf"), float("nan"), -1.0])
+    odd_idx = b4(-5, 1030, 32768)
+    odd_idx[:, :64] = 5
+    err = max(max_abs_err("table_take_cm", (gk.take_cm(tab, ix),),
+                          (gk.table_take_cm_plain(tab, ix),))
+              for tab, ix in ((table, seg), (odd_tab, odd_idx)))
+    table_t = table.transpose(1, 2)
+    seg64 = seg.to(torch.int64)[:, None, :].expand(4, 4, seg.shape[1])
+    record("table_take_cm", "gather.cu",
+           "ros_vision_tpu/ops/gather_pallas.py:95", err,
+           lambda: gk.take_cm(table, seg),
+           lambda: gk.table_take_cm_plain(table, seg),
+           "1280x800 B=4 S=1025 C=4 K=32768", [table, seg],
+           library=lambda: torch.gather(table_t, 2, seg64))
+
+    # K11 at 1920x1080: the y extents of the (B, 131072) segments (the
+    # role of cluster_and_fit's ykey sort), and random ids (some outside
+    # [0, S)) with values past +-2^30
+    key_s2, pack2_s2 = qf._sort2(key2, pack22)
+    seg2 = segs.segment_ids_from_sorted_keys(
+        key_s2, valid=key_s2 < qf.KEY_INVALID, max_segments=1024)
+    y2 = qf.unpack_payload(pack2_s2)[1].contiguous()
+    rnd_seg, rnd_val = b4(-20, 1045, 131072), b4(-2 ** 31, 2 ** 31 - 1, 131072)
+    err = max(max_abs_err("segment_min_max", gk.segment_min_max(sg, v, 1025),
+                          gk.segment_min_max_plain(sg, v, 1025))
+              for sg, v in ((seg2, y2), (rnd_seg, rnd_val)))
+    seg2_64 = seg2.to(torch.int64)
+    mn_out = torch.full((4, 1025), 2 ** 30, dtype=torch.int32, device=dev)
+    mx_out = torch.full_like(mn_out, -2 ** 30)
+    record("segment_min_max", "segment.cu",
+           "ros_vision_tpu/ops/gather_pallas.py:251", err,
+           lambda: gk.segment_min_max(seg2, y2, 1025),
+           lambda: gk.segment_min_max_plain(seg2, y2, 1025),
+           "1920x1080 B=4 S=1025 K=131072", [seg2, y2],
+           library=lambda: (mn_out.scatter_reduce_(1, seg2_64, y2, "amin"),
+                            mx_out.scatter_reduce_(1, seg2_64, y2, "amax")))
     for r in results:
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
         print(f"  {r['name']}: max abs err {r['max_abs_err']} (bit-exact); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"({r['at']}, median of {REPS})")
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) ({r['at']}, median of {REPS})")
     return results, dict(t4=t4, t2=t2)
+
+
+def capture_sorts(pts: dict, decim, k: int) -> list:
+    """The operands and num_keys of the sort_tpu calls that
+    cluster_and_fit makes with use_pallas_sort on these points."""
+    from ros_vision_tpu_torch.ops import quadfit as qf
+    from ros_vision_tpu_torch.ops import sort_kernel as sk
+    calls = []
+    real = sk.sort_tpu
+
+    def recording(operands, num_keys=1):
+        operands = list(operands)
+        calls.append(([o.contiguous().clone() for o in operands], num_keys))
+        return real(operands, num_keys)
+
+    sk.sort_tpu = recording
+    try:
+        qf.cluster_and_fit(pts, decim, qf.QuadFitConfig(
+            max_points=k, use_pallas_sort=True))
+    finally:
+        sk.sort_tpu = real
+    return calls
+
+
+def sort_err(ops: list, num_keys: int) -> float:
+    """K9 against its plain version: every plane bit-exact where every
+    operand is a key; otherwise the keys bit-exact and the payload equal
+    as a multiset within each run of equal keys (both outputs put in the
+    canonical order of a sort by every plane)."""
+    from ros_vision_tpu_torch.ops import sort_kernel as sk
+    got = sk.sort_tpu(ops, num_keys)
+    want = sk.sort_plain(ops, num_keys)
+    if num_keys == len(ops):
+        return max_abs_err("sort_tpu", got, want)
+    err = max_abs_err("sort_tpu keys", got[:num_keys], want[:num_keys])
+    return max(err, max_abs_err(
+        "sort_tpu payload", sk.sort_plain(got, len(got)),
+        sk.sort_plain(want, len(want))))
 
 
 def match_corners(dets, placed_list, tol: float, what: str) -> float:
@@ -370,14 +558,64 @@ def detector_phase(dev, bench4, placed, must: set):
     return out, counts
 
 
+def pallas_sort_phase(dev, bench4, must: set):
+    """TorchDetector(use_pallas_sort=True) at B=4 against the default
+    configuration on the same batch: bit-identical packed outputs, the
+    bench ids in every row, exactly the path's kernels plus sort_tpu, 4
+    sort_tpu launches per call (one cluster_and_fit); the two
+    configurations' call times taken in turns."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+
+    _, height, width = bench4.shape
+    kw = dict(width=width, height=height, fx=900.0, fy=900.0,
+              cx=width / 2, cy=height / 2, estimate_pose=True)
+    det = TorchDetector(device=dev, **kw)
+    det_ps = TorchDetector(device=dev, use_pallas_sort=True, **kw)
+    g = torch.from_numpy(np.ascontiguousarray(bench4)).to(dev)
+    want = det.detect_raw_packed(g)
+    det_ps.detect_raw_packed(g)                           # warm-up
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    got = det_ps.detect_raw_packed(g)
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    print(f"  launches in one use_pallas_sort call: {counts}")
+    check_kernel_set(f"use_pallas_sort detector {width}x{height}", counts,
+                     must | {"sort_tpu"})
+    check(counts["sort_tpu"] == 4,
+          f"sort_tpu launched {counts['sort_tpu']} times, not 4")
+    max_abs_err("use_pallas_sort packed output", (got,), (want,))
+    for i, dets in enumerate(det_ps.unpack(got)):
+        ids = [d.tag_id for d in dets]
+        check(ids == BENCH_IDS, f"use_pallas_sort row {i}: ids {ids}")
+    times = {"default": [], "use_pallas_sort": []}
+    for _ in range(REPS):
+        for name, d in (("default", det), ("use_pallas_sort", det_ps)):
+            t0 = time.perf_counter()
+            d.detect_raw_packed(g)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  B=4 {width}x{height}: packed output bit-identical to the "
+          f"default; ids {BENCH_IDS} in every row; ms/call default "
+          f"{ms['default']:.3f}, use_pallas_sort {ms['use_pallas_sort']:.3f}"
+          f" (medians of {REPS}, in turns, host clock incl. sync)")
+    return ms, counts
+
+
 def ccl_paths_phase(t4, t2):
     """The ops/ccl.py entry points off the detector: each run with the
     counts reset, its launches read, and its output held against the
-    plain CCL (ccl.label_components) on the card."""
+    plain CCL on the card (ccl.label_components for the hybrid, which
+    shares its rank packing; K2's plain version, ranks 1..2048, for the
+    flood entry points)."""
     import torch
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.device import HostSyncs
     from ros_vision_tpu_torch.ops import ccl
+    from ros_vision_tpu_torch.ops import frontend_kernel as fk
 
     paths = {
         "label_components_hybrid (1280x800 B=4)":
@@ -385,11 +623,11 @@ def ccl_paths_phase(t4, t2):
              lambda: ccl.label_components(t4), {"propagate"}),
         "flood_ranks (1920x1080 B=4)":
             (lambda syncs: (ccl.flood_ranks(t2),),
-             lambda: ccl.label_components(t2)[2:],
+             lambda: fk.label_components_plain(t2)[2:],
              {"propagate_fixpoint", "label_histogram", "rank_gather"}),
         "label_components_flood broadcast=flood (1920x1080 B=4)":
             (lambda syncs: ccl.label_components_flood(t2, broadcast="flood"),
-             lambda: ccl.label_components(t2),
+             lambda: fk.label_components_plain(t2),
              {"propagate_fixpoint", "label_histogram"}),
     }
     launches = {}
@@ -428,10 +666,10 @@ class RecordingSender:
 
 def system_phase(dev, min_batches: int = 20):
     import torch
-    from ros_vision_tpu.apriltag.render import (render_scene,
+    from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                 simple_square_corners)
-    from ros_vision_tpu.config.loader import ConfigLoader
-    from ros_vision_tpu.runtime.camera import MockCamera
+    from ros_vision_tpu_torch.config.loader import ConfigLoader
+    from ros_vision_tpu_torch.runtime.camera import MockCamera
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.launch import VisionSystem
 
@@ -571,6 +809,13 @@ def main() -> int:
     print(f"[detector {W2}x{H2}]")
     det_1080, paths["detector 1920x1080"] = detector_phase(
         dev, bench4_1080, bench_1080[0][1], PATH_1080)
+    sorted_ms = {}
+    print(f"[use_pallas_sort detector {W}x{H}]")
+    sorted_ms["1280x800"], paths["use_pallas_sort 1280x800"] = \
+        pallas_sort_phase(dev, bench4, PATH_800)
+    print(f"[use_pallas_sort detector {W2}x{H2}]")
+    sorted_ms["1920x1080"], paths["use_pallas_sort 1920x1080"] = \
+        pallas_sort_phase(dev, bench4_1080, PATH_1080)
     print("[ccl entry points]")
     paths.update(ccl_paths_phase(planes["t4"], planes["t2"]))
     print("[system]")
@@ -580,6 +825,7 @@ def main() -> int:
     print(json.dumps({"detector": {str(b): v for b, v in det.items()},
                       "detector_1080": {str(b): v
                                         for b, v in det_1080.items()},
+                      "use_pallas_sort_b4_ms_per_call": sorted_ms,
                       "system": system}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,12 @@ _SIGNATURES = {
     "rvt_propagate": [_P] * 5 + [_I] * 4,
     # labels, rank_v, out, b, n
     "rvt_rank_gather": [_P] * 3 + [_I] * 2,
+    # in0..2, work0..2, out0..2, b, k, n, nops, nkeys
+    "rvt_sort": [_P] * 9 + [_I] * 5,
+    # table, idx, out, b, s, c, k
+    "rvt_table_take_cm": [_P] * 3 + [_I] * 4,
+    # seg, val, mn, mx, b, k, s
+    "rvt_segment_min_max": [_P] * 4 + [_I] * 3,
 }
 
 

@@ -9,7 +9,9 @@ cluster_and_fit (K4 histograms), a loose decode screen, refine_edges,
 decode, duplicate reconcile and pose. The CCL ranks come from the front
 end the JAX detector's TPU path takes for the frame size
 (ops/frontend_kernel.py frontend_route): K2 at 1280x800, the flood CCL
-(K6 + K7) at 1920x1080.
+(K6 + K7) at 1920x1080. With use_pallas_sort, cluster_and_fit's four
+sorts run on K9 (ops/sort_kernel.py) instead of torch.sort, with
+bit-identical outputs.
 
 On a CUDA tensor the hand-written kernels run; on a CPU tensor their
 plain versions do. There is no other switch. PyTorch runs eagerly, so the
@@ -24,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ros_vision_tpu.apriltag.families import TagFamily, get_family
+from ros_vision_tpu_torch.apriltag.families import TagFamily, get_family
 from ros_vision_tpu_torch.device import HostSyncs
 from ros_vision_tpu_torch.ops import decode as dec, pose as poseops
 from ros_vision_tpu_torch.ops import quadfit
@@ -34,9 +36,9 @@ from ros_vision_tpu_torch.ops.threshold_kernel import adaptive_threshold_fused
 
 # The JAX DetectorConfig fields that only choose between bit-identical TPU
 # implementations of the same stage; config_from_jax drops them.
+# use_pallas_sort is kept: it routes cluster_and_fit's sorts through K9.
 TPU_BACKEND_SWITCHES = ("use_pallas_threshold", "use_pallas_ccl",
-                        "use_fused_frontend", "use_pallas_sort",
-                        "route_compaction")
+                        "use_fused_frontend", "route_compaction")
 
 
 @dataclasses.dataclass
@@ -55,7 +57,7 @@ class Detection:
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Same fields and auto rules as the JAX DetectorConfig, minus the TPU
-    backend switches."""
+    backend switches of TPU_BACKEND_SWITCHES."""
     width: int = 1280
     height: int = 800
     family: str = "tag36h11"
@@ -73,6 +75,9 @@ class DetectorConfig:
     cx: float = 0.0
     cy: float = 0.0
     dist: tuple = (0.0, 0.0, 0.0, 0.0, 0.0)
+    # cluster_and_fit's four sorts through K9 (ops/sort_kernel.py) instead
+    # of torch.sort; None or False = off, as the JAX detector resolves it
+    use_pallas_sort: bool | None = None
 
     def __post_init__(self):
         if self.width % 8 or self.height % 8:
@@ -81,9 +86,9 @@ class DetectorConfig:
 
 def config_from_jax(d: dict) -> DetectorConfig:
     """DetectorConfig from dataclasses.asdict() of a JAX DetectorConfig.
-    The five TPU backend switches are dropped: each only chose between
+    The four TPU backend switches are dropped: each only chose between
     TPU implementations of one stage that give bit-identical outputs, so
-    they carry no state the port needs."""
+    they carry no state the port needs. use_pallas_sort is carried."""
     kw = {k: v for k, v in d.items() if k not in TPU_BACKEND_SWITCHES}
     kw["dist"] = tuple(kw.get("dist", (0.0,) * 5))
     return DetectorConfig(**kw)
@@ -174,7 +179,8 @@ class TorchDetector:
             max_quads=config.max_quads,
             tag_width=max(3, self.family.border_size // dec.QUAD_DECIMATE),
             normal_border=not self.family.reversed_border,
-            reversed_border=self.family.reversed_border)
+            reversed_border=self.family.reversed_border,
+            use_pallas_sort=bool(config.use_pallas_sort))
         ka = config.active_points
         if ka is None:
             ka = config.max_points // 4 if config.max_points >= 32768 \

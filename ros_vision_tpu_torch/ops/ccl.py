@@ -5,12 +5,15 @@ of label_components: same-value components of a {0, 127, 255} image with
 4-way connectivity for 0, 8-way for 255 (diagonals join only 255 pixels)
 and 127 pixels as singletons; each label is the minimum flat pixel index
 of its component; ranks run 1..MAX_BLOBS over components of >= min_blob
-pixels in root order (0 elsewhere).
+pixels in root order (0 elsewhere). label_components and
+label_components_hybrid return the 2048th blob's rank as -2048, as their
+JAX counterparts do (see packed_rank); the flood entry points and K2
+return 2048.
 
 The plain PyTorch versions here (label_components, propagate_fixpoint,
 label_histogram, propagate) use one algorithm: min-label hooking plus
-pointer jumping to a fixpoint. Their hand-written kernels are K2 in
-ops/frontend_kernel.py, K6-K8 in ops/ccl_kernel.py and K12 in
+pointer jumping to a fixpoint (hook_labels). Their hand-written kernels
+are K2 in ops/frontend_kernel.py, K6-K8 in ops/ccl_kernel.py and K12 in
 ops/gather_kernel.py. The entry points label_components_flood,
 flood_ranks and label_components_hybrid go through those kernel wrappers,
 so a CUDA tensor runs the kernels and a CPU tensor the plain versions.
@@ -78,7 +81,7 @@ def finish(p: torch.Tensor, min_blob: int):
     return torch.gather(sizes_at_root, 1, idx), torch.gather(rank, 1, idx)
 
 
-def _labels(threshim: torch.Tensor) -> torch.Tensor:
+def hook_labels(threshim: torch.Tensor) -> torch.Tensor:
     """(B, H, W) uint8 -> (B, H*W) int32 min-index component labels."""
     b, h, w = threshim.shape
     n = h * w
@@ -97,11 +100,21 @@ def _labels(threshim: torch.Tensor) -> torch.Tensor:
         p = pn
 
 
+def packed_rank(ranks: torch.Tensor) -> torch.Tensor:
+    """Ranks as the JAX package's _finish epilogue returns them: it packs
+    rank << 20 | size into one int32 (ros_vision_tpu/ops/ccl.py:54) and
+    unpacks with an arithmetic shift, so rank MAX_BLOBS = 2^11 lands on
+    the sign bit and comes back as -MAX_BLOBS."""
+    return torch.where(ranks == MAX_BLOBS, -MAX_BLOBS, ranks)
+
+
 def label_components(threshim: torch.Tensor, min_blob: int = 25):
-    """(B, H, W) uint8 -> (labels, sizes, ranks), each (B, H*W) int32."""
-    p = _labels(threshim)
+    """(B, H, W) uint8 -> (labels, sizes, ranks), each (B, H*W) int32, as
+    ros_vision_tpu/ops/ccl.py label_components (rank -2048 for the 2048th
+    blob, see packed_rank)."""
+    p = hook_labels(threshim)
     sizes, ranks = finish(p, min_blob)
-    return p, sizes, ranks
+    return p, sizes, packed_rank(ranks)
 
 
 def propagate_fixpoint(threshim: torch.Tensor,
@@ -112,7 +125,7 @@ def propagate_fixpoint(threshim: torch.Tensor,
     offers 2^30 for every masked-out neighbour, and every component has
     one)."""
     b, h, w = threshim.shape
-    idx = _labels(threshim).to(torch.int64)
+    idx = hook_labels(threshim).to(torch.int64)
     rootmin = torch.full((b, h * w), _INT32_MAX, dtype=torch.int32,
                          device=values.device)
     rootmin.scatter_reduce_(1, idx, values.reshape(b, h * w), reduce="amin")
@@ -200,8 +213,9 @@ def label_components_hybrid(threshim: torch.Tensor, max_iters: int = 16,
     ros_vision_tpu/ops/ccl.py label_components_hybrid: rounds of K8 sweeps
     (pallas_sweeps in the first round, verify_sweeps after), one
     scatter-min hook and one pointer jump each, until a round changes
-    nothing or max_iters rounds ran. The loop runs on the host; each
-    round's `changed` read is counted in `syncs`."""
+    nothing or max_iters rounds ran (rank -2048 for the 2048th blob, see
+    packed_rank). The loop runs on the host; each round's `changed` read
+    is counted in `syncs`."""
     if syncs is None:
         syncs = HostSyncs()
     b, h, w = threshim.shape
@@ -220,4 +234,4 @@ def label_components_hybrid(threshim: torch.Tensor, max_iters: int = 16,
         if not changed:
             break
     sizes, ranks = finish(p, min_blob)
-    return p, sizes, ranks
+    return p, sizes, packed_rank(ranks)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ros_vision_tpu.apriltag.families import TagFamily
+from ros_vision_tpu_torch.apriltag.families import TagFamily
 from ros_vision_tpu_torch.ops import mathf
 
 QUAD_DECIMATE = 2

@@ -2,9 +2,11 @@
 
 Replace ros_vision_tpu/ops/frontend_pallas.py rank_image and
 boundary_compact. A CUDA tensor launches csrc/ccl.cu / csrc/boundary.cu;
-a CPU tensor runs the plain versions (ops/ccl.py label_components and
-ops/quadfit.py boundary_points_capped). Outputs are bit-identical either
-way, including overflow at both boundary caps.
+a CPU tensor runs the plain versions (label_components_plain here, the
+hook CCL of ops/ccl.py, and ops/quadfit.py boundary_points_capped).
+Outputs are bit-identical either way, including overflow at both boundary
+caps. K2 returns rank 2048 for the 2048th blob, as rank_image does (the
+XLA ccl.label_components returns -2048 there).
 
 frontend() takes its ranks from the CCL the JAX detector's TPU path picks
 for the frame size (frontend_route): K2 for lane-aligned frames up to 2^18
@@ -50,11 +52,21 @@ def _label_components_cuda(threshim: torch.Tensor, min_blob: int,
     return labels, sizes, ranks
 
 
+def label_components_plain(threshim: torch.Tensor,
+                           min_blob: int = MIN_BLOB_PIXELS):
+    """Plain version of K2 (any device): (B, H, W) uint8 -> (labels,
+    sizes, ranks), each (B, H*W) int32, ranks 1..2048."""
+    p = ccl.hook_labels(threshim)
+    sizes, ranks = ccl.finish(p, min_blob)
+    return p, sizes, ranks
+
+
 def label_components(threshim: torch.Tensor,
                      min_blob: int = MIN_BLOB_PIXELS):
-    """(B, H, W) uint8 -> (labels, sizes, ranks), each (B, H*W) int32."""
+    """(B, H, W) uint8 -> (labels, sizes, ranks), each (B, H*W) int32;
+    kernel on CUDA, plain version on the CPU."""
     if kernel_route(threshim) == "cpu":
-        return ccl.label_components(threshim, min_blob)
+        return label_components_plain(threshim, min_blob)
     return _label_components_cuda(threshim, min_blob, with_sizes=True)
 
 
@@ -63,7 +75,7 @@ def rank_image(threshim: torch.Tensor,
     """(B, H, W) uint8 -> (B, H, W) int32 dense blob ranks (1..2048 over
     components of >= min_blob pixels in root order, 0 elsewhere)."""
     if kernel_route(threshim) == "cpu":
-        ranks = ccl.label_components(threshim, min_blob)[2]
+        ranks = label_components_plain(threshim, min_blob)[2]
     else:
         ranks = _label_components_cuda(threshim, min_blob,
                                        with_sizes=False)[2]

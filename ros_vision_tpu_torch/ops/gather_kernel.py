@@ -1,13 +1,23 @@
-"""K4 value histogram and K12 rank gather.
+"""K4 value histogram, K10 table gather, K11 segment min/max and K12 rank
+gather.
 
 K4, out[b, s] = #(values[b] == s), replaces
 ros_vision_tpu/ops/gather_pallas.py value_histogram (the per-segment
 counts of cluster_and_fit); values outside [0, num_values) are not
-counted. K12, out[b, i] = rank_v[b, labels[b, i]] (0 for a label outside
-[0, N)), replaces gather_pallas.py rank_gather (the rank broadcast of
-ccl.flood_ranks). A CUDA tensor launches csrc/histogram.cu /
-csrc/gather.cu; a CPU tensor runs the plain version. Bit-exact either
-way.
+counted. K10, out[b, c, k] = table[b, idx[b, k], c] (0 for an index
+outside [0, S)), replaces gather_pallas.py table_take_cm, with take_cm its
+dispatcher. K11, the per-segment min and max of (B, K) values, replaces
+gather_pallas.py segment_min_max. K12, out[b, i] = rank_v[b, labels[b, i]]
+(0 for a label outside [0, N)), replaces gather_pallas.py rank_gather (the
+rank broadcast of ccl.flood_ranks). A CUDA tensor launches
+csrc/histogram.cu, csrc/gather.cu (K10, K12) or csrc/segment.cu (K11); a
+CPU tensor runs the plain version. Bit-exact either way.
+
+K10 follows table_take_cm_ref's contract, not the TPU kernel's arithmetic:
+the TPU kernel gathers by a one-hot f32 matmul, which turns -0.0 into
++0.0 and spreads an inf or NaN of the table over the whole 256-row chunk
+(0 * inf), so the two differ on non-finite tables and on -0.0. Here the
+value is copied.
 """
 from __future__ import annotations
 
@@ -17,7 +27,10 @@ from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.device import kernel_route
 
 launches = _build.counter("value_histogram")
+take_launches = _build.counter("table_take_cm")
+minmax_launches = _build.counter("segment_min_max")
 rank_gather_launches = _build.counter("rank_gather")
+_BIG = 2 ** 30             # segment_min_max's empty-segment min (-max)
 
 
 def value_histogram_plain(values: torch.Tensor,
@@ -50,6 +63,85 @@ def histogram(values: torch.Tensor, num_values: int) -> torch.Tensor:
     if kernel_route(values) == "cpu":
         return value_histogram_plain(values, num_values)
     return value_histogram_cuda(values.contiguous(), num_values)
+
+
+def table_take_cm_plain(table: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (any device) of table_take_cm_ref: (B, S, C)
+    table, (B, K) indices -> (B, C, K) f32, 0 where an index lies outside
+    [0, S)."""
+    _, s, c = table.shape
+    inside = (idx >= 0) & (idx < s)
+    safe = idx.clamp(0, s - 1).to(torch.int64)
+    g = torch.gather(table.to(torch.float32), 1,
+                     safe[..., None].expand(-1, -1, c))
+    return torch.where(inside[..., None], g, 0.0).movedim(-1, 1)
+
+
+def _table_take_cm_cuda(table: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    b, s, c = table.shape
+    k = idx.shape[1]
+    dev = table.device
+    _build.check_tensor(table, "table", torch.float32, (b, s, c), dev)
+    _build.check_tensor(idx, "idx", torch.int32, (b, k), dev)
+    out = torch.empty((b, c, k), dtype=torch.float32, device=dev)
+    _build.launch("rvt_table_take_cm", dev, table, idx, out, b, s, c, k)
+    take_launches.count += 1
+    return out
+
+
+def take_cm(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, S, C) table + (B, K) int32 indices -> (B, C, K) f32
+    channel-major gather (0 outside [0, S)); kernel on CUDA, plain
+    version on the CPU."""
+    if kernel_route(table) == "cpu":
+        return table_take_cm_plain(table, idx)
+    return _table_take_cm_cuda(table.to(torch.float32).contiguous(),
+                               idx.contiguous())
+
+
+def segment_min_max_plain(seg: torch.Tensor, val: torch.Tensor,
+                          num_segments: int):
+    """Plain PyTorch version (any device) of segment_min_max_ref: (B, K)
+    segment ids and values -> ((B, S) min, (B, S) max), starting from
+    2^30 / -2^30 (so empty segments read those); ids outside [0, S) are
+    dropped."""
+    b = seg.shape[0]
+    inside = (seg >= 0) & (seg < num_segments)
+    idx = torch.where(inside, seg, num_segments).to(torch.int64)
+    mn = torch.full((b, num_segments + 1), _BIG, dtype=torch.int32,
+                    device=seg.device)
+    mx = torch.full_like(mn, -_BIG)
+    v = val.to(torch.int32)
+    mn.scatter_reduce_(1, idx, v, reduce="amin")
+    mx.scatter_reduce_(1, idx, v, reduce="amax")
+    return mn[:, :num_segments], mx[:, :num_segments]
+
+
+def _segment_min_max_cuda(seg: torch.Tensor, val: torch.Tensor,
+                          num_segments: int):
+    b, k = seg.shape
+    dev = seg.device
+    _build.check_tensor(seg, "seg", torch.int32, (b, k), dev)
+    _build.check_tensor(val, "val", torch.int32, (b, k), dev)
+    mn = torch.empty((b, num_segments), dtype=torch.int32, device=dev)
+    mx = torch.empty((b, num_segments), dtype=torch.int32, device=dev)
+    _build.launch("rvt_segment_min_max", dev, seg, val, mn, mx, b, k,
+                  num_segments)
+    minmax_launches.count += 1
+    return mn, mx
+
+
+def segment_min_max(seg: torch.Tensor, val: torch.Tensor,
+                    num_segments: int):
+    """(B, K) int32 segment ids and values -> ((B, S) min, (B, S) max),
+    min(2^30, .) and max(-2^30, .) of each segment's values, ids outside
+    [0, S) dropped; kernel on CUDA, plain version on the CPU."""
+    if kernel_route(seg) == "cpu":
+        return segment_min_max_plain(seg, val, num_segments)
+    return _segment_min_max_cuda(seg.contiguous(), val.contiguous(),
+                                 num_segments)
 
 
 def rank_gather_plain(labels: torch.Tensor,

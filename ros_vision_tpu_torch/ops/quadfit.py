@@ -8,9 +8,12 @@ compacted and uniformly thinned to K slots; segment tables from a sort by
 errors from segmented prefix sums; 7-tap smoothing, <= 10 maxima per
 segment, the 45 pair fits and 210 quad combinations; corners of the best
 combination. The two histograms go through K4 (ops/gather_kernel.py).
-Sorts, cumsums and gathers stay PyTorch ops, as they stayed XLA ops in
-the JAX package; every lax.sort becomes a stable torch.sort, and each
-multi-key sort sorts one int64 packing of its int32 keys.
+Cumsums and gathers stay PyTorch ops, as they stayed XLA ops in the JAX
+package. The four sorts follow cfg.use_pallas_sort as in the JAX
+package: off, every lax.sort becomes a stable torch.sort (each multi-key
+sort sorts one int64 packing of its int32 keys); on, all four go through
+K9 (ops/sort_kernel.py sort_tpu), with every operand a key, so the two
+configurations give bit-identical outputs.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 
 from ros_vision_tpu_torch.ops import mathf, scan
 from ros_vision_tpu_torch.ops import segments as segs
+from ros_vision_tpu_torch.ops import sort_kernel
 from ros_vision_tpu_torch.ops.gather_kernel import histogram
 
 MIN_BLOB_PIXELS = 25
@@ -60,6 +64,7 @@ class QuadFitConfig:
     tag_width: int = 4           # min tag width in decimated px
     normal_border: bool = True
     reversed_border: bool = False
+    use_pallas_sort: bool = False  # the four sorts through K9
 
     @property
     def max_boundary_pixels(self) -> int:
@@ -221,6 +226,16 @@ def _sort2(a: torch.Tensor, b: torch.Tensor):
     return (s >> 32).to(torch.int32), (s & 0xFFFFFFFF).to(torch.int32)
 
 
+def _make_sorters(cfg: QuadFitConfig):
+    """(sort1, sort2) over (B, K) int32 rows: K9 when cfg.use_pallas_sort
+    (every operand a key, so ties are identical tuples and the unstable
+    network equals a stable sort), else torch.sort."""
+    if cfg.use_pallas_sort:
+        return (lambda a: sort_kernel.sort_tpu([a], num_keys=1)[0],
+                lambda a, b: tuple(sort_kernel.sort_tpu([a, b], num_keys=2)))
+    return lambda a: torch.sort(a, dim=1)[0], _sort2
+
+
 def _float_sort_key(x: torch.Tensor) -> torch.Tensor:
     """int64 key in [0, 2^32) ordered like x under lax.sort's total order
     for f32 (-0.0 and +0.0 compare equal)."""
@@ -248,11 +263,13 @@ def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
     f32 = torch.float32
     i_global = torch.arange(k, dtype=i32, device=dev)[None].expand(b, k)
 
+    sort1, sort2 = _make_sorters(cfg)
+
     def clipk(t):
         return t.clamp(0, k - 1)
 
     # ---- sort by (blob-pair key, x-major payload) -----------------------
-    key_s, pack2 = _sort2(pts["key"], pts["pack2"])
+    key_s, pack2 = sort2(pts["key"], pts["pack2"])
     x2, y2, gx, gy = unpack_payload(pack2)
     valid_pt = key_s < KEY_INVALID
     seg = segs.segment_ids_from_sorted_keys(key_s, valid=valid_pt,
@@ -265,8 +282,7 @@ def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
 
     xmin = segs.take1(x2, clipk(start_tab))
     xmax = segs.take1(x2, clipk(end_tab))
-    ykey = torch.sort(torch.where(valid_pt, seg, nseg) << 11 | y2,
-                      dim=1)[0]
+    ykey = sort1(torch.where(valid_pt, seg, nseg) << 11 | y2)
     ymin = segs.take1(ykey, clipk(start_tab)) & 0x7FF
     ymax = segs.take1(ykey, clipk(end_tab)) & 0x7FF
     cx = (xmin + xmax).to(f32) * 0.5 + 0.05118
@@ -301,7 +317,7 @@ def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
         .clamp(0, 2 ** 20 - 1)
     sort_key = (torch.where(valid_pt, seg, nseg) << 20) | theta_fx
     pack3 = (x2 << 11) | y2
-    sort_key_s, pack3 = _sort2(sort_key, pack3)
+    sort_key_s, pack3 = sort2(sort_key, pack3)
     seg = sort_key_s >> 20
     x2 = pack3 >> 11
     y2 = pack3 & 0x7FF
@@ -459,10 +475,20 @@ def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
 
     # ---- top-10 maxima per segment: stable sort by (segment, -error) ----
     peak_seg = torch.where(is_peak, seg, nseg)
-    order = torch.sort((peak_seg.to(torch.int64) << 32)
-                       | _float_sort_key(-errs), dim=1, stable=True)[1]
-    perr_s = torch.gather(errs, 1, order)
-    ppos_s = torch.gather(pos, 1, order)
+    if cfg.use_pallas_sort:
+        # the JAX package's int formulation: the error's f32 bits order
+        # like the error for nonnegative errors, and pos as a third key
+        # reproduces the stable order (pos follows the slot within a
+        # segment, the primary key)
+        errbits = errs.view(torch.int32)
+        _, negb_s, ppos_s = sort_kernel.sort_tpu([peak_seg, -errbits, pos],
+                                                 num_keys=3)
+        perr_s = (-negb_s).view(torch.float32)
+    else:
+        order = torch.sort((peak_seg.to(torch.int64) << 32)
+                           | _float_sort_key(-errs), dim=1, stable=True)[1]
+        perr_s = torch.gather(errs, 1, order)
+        ppos_s = torch.gather(pos, 1, order)
     pk_count = histogram(peak_seg, nseg1)
     pkf = pk_count.to(f32)
     pstart = (scan.cumsum_mxu(pkf) - pkf).to(i32)

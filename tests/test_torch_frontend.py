@@ -41,32 +41,32 @@ def _cases():
     }
 
 
-def _xla_ranks(jr) -> np.ndarray:
-    """ccl.label_components' ranks with its packing quirk undone: its
-    epilogue packs rank << 20 | size into one int32, so the rank 2048
-    wraps to -2048 there. The Pallas rank_image (the TPU production path)
-    and the port both return 2048, as the contract (ranks 1..2048) says."""
-    r = n(jr)
-    return np.where(r == -tccl.MAX_BLOBS, tccl.MAX_BLOBS, r)
-
-
 @pytest.mark.parametrize("case", ["scene", "random", "overflow"])
 def test_label_components_bit_exact(case):
+    """ccl.label_components equals the JAX function, rank -2048 of the
+    2048th blob included (the JAX epilogue packs rank << 20 | size); K2
+    and its plain version return 2048 there, as frontend_pallas.rank_image
+    does, and equal the JAX ranks everywhere else."""
     th = _cases()[case]()
     min_blob = 4 if case == "overflow" else 25
     jl, js, jr = jccl.label_components(jnp.asarray(th), min_blob=min_blob)
-    for fn in (tccl.label_components, fk.label_components):
-        tl, ts, tr = fn(t(th), min_blob)
-        np.testing.assert_array_equal(n(jl), n(tl))
-        np.testing.assert_array_equal(n(js), n(ts))
-        np.testing.assert_array_equal(_xla_ranks(jr), n(tr))
+    tl, ts, tr = tccl.label_components(t(th), min_blob)
+    np.testing.assert_array_equal(n(jl), n(tl))
+    np.testing.assert_array_equal(n(js), n(ts))
+    np.testing.assert_array_equal(n(jr), n(tr))
+    want = n(jr)
     if case == "overflow":
         big = (n(js) >= min_blob) & (n(jl) == np.arange(th[0].size))
         assert big.sum() > tccl.MAX_BLOBS
-        assert int(n(tr).max()) == tccl.MAX_BLOBS
-        want = fp.rank_image(jnp.asarray(th), min_blob=min_blob,
-                             interpret=True)
-        np.testing.assert_array_equal(n(want).reshape(1, -1), n(tr))
+        assert int(want.min()) == -tccl.MAX_BLOBS
+        want = n(fp.rank_image(jnp.asarray(th), min_blob=min_blob,
+                               interpret=True)).reshape(1, -1)
+        assert int(want.max()) == tccl.MAX_BLOBS
+    for fn in (fk.label_components_plain, fk.label_components):
+        kl, ks, kr = fn(t(th), min_blob)
+        np.testing.assert_array_equal(n(jl), n(kl))
+        np.testing.assert_array_equal(n(js), n(ks))
+        np.testing.assert_array_equal(want, n(kr))
 
 
 def test_rank_image_matches_pallas_interpret(scene2):

@@ -1,6 +1,11 @@
-"""Parity of the K4 value histogram (ros_vision_tpu_torch/ops/gather_kernel.py)
-with ops/gather_pallas.value_histogram (interpret mode) and its reference
-value_histogram_ref: bit-exact, values outside [0, S) not counted."""
+"""Parity of the K4 value histogram, the K10 table gather and the K11
+segment min/max (ros_vision_tpu_torch/ops/gather_kernel.py) with
+ops/gather_pallas value_histogram, table_take_cm and segment_min_max
+(interpret mode) and their references: bit-exact, values outside [0, S)
+not counted, indices outside [0, S) read 0, segment ids outside [0, S)
+dropped. K10 equals the interpret-mode kernel on finite tables and
+table_take_cm_ref everywhere: the TPU kernel's one-hot matmul turns -0.0
+into +0.0 and spreads a non-finite table entry over its 256-row chunk."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,3 +58,99 @@ def test_histogram_of_a_noncontiguous_view():
     got = gk.histogram(wide[:, :4096], S)
     np.testing.assert_array_equal(n(gp.value_histogram_ref(
         jnp.asarray(v), S)), n(got))
+
+
+def _table_case(b=2, s=S, c=4, k=2048, seed=5):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(0, 100, (b, s, c)).astype(np.float32)
+    idx = rng.integers(-30, s + 30, (b, k)).astype(np.int32)
+    idx[:, :4] = [-1, s, np.iinfo(np.int32).max, np.iinfo(np.int32).min]
+    return table, idx
+
+
+@pytest.mark.parametrize("c", [1, 4, 9])
+def test_table_take_cm_bit_exact(c):
+    table, idx = _table_case(c=c)
+    want = n(gp.table_take_cm(jnp.asarray(table), jnp.asarray(idx),
+                              interpret=True))
+    np.testing.assert_array_equal(
+        want, n(gp.table_take_cm_ref(jnp.asarray(table), jnp.asarray(idx))))
+    before = gk.take_launches.count
+    for fn in (gk.table_take_cm_plain, gk.take_cm):
+        got = n(fn(t(table), t(idx)))
+        assert got.dtype == np.float32 and got.shape == (2, c, 2048)
+        np.testing.assert_array_equal(want, got)
+    assert gk.take_launches.count == before      # CPU tensor: plain version
+    np.testing.assert_array_equal(want[:, :, :4], 0.0)
+
+
+def test_table_take_cm_non_finite_follows_ref():
+    """-0.0, inf and NaN are copied, as table_take_cm_ref does."""
+    table, idx = _table_case(c=2, k=1024)
+    table[0, 5] = [-0.0, np.inf]
+    table[1, 700] = [np.nan, -np.inf]
+    idx[0, 10:13] = 5
+    idx[1, 10:13] = 700
+    want = n(gp.table_take_cm_ref(jnp.asarray(table), jnp.asarray(idx)))
+    got = n(gk.take_cm(t(table), t(idx)))
+    np.testing.assert_array_equal(want, got)
+    assert np.signbit(got[0, 0, 10]) and np.isposinf(got[0, 1, 10])
+    assert np.isnan(got[1, 0, 10]) and np.isneginf(got[1, 1, 10])
+    # the TPU kernel's one-hot product differs there
+    tpu = n(gp.table_take_cm(jnp.asarray(table), jnp.asarray(idx),
+                             interpret=True))
+    assert not np.signbit(tpu[0, 0, 10])
+
+
+def test_table_take_cm_of_noncontiguous_views():
+    table, idx = _table_case(c=4, k=2048)
+    wide = t(np.concatenate([idx, idx], axis=1))[:, ::2]
+    tab_t = t(np.ascontiguousarray(table.transpose(0, 2, 1))).transpose(1, 2)
+    assert not wide.is_contiguous() and not tab_t.is_contiguous()
+    want = n(gp.table_take_cm_ref(jnp.asarray(table),
+                                  jnp.asarray(np.concatenate(
+                                      [idx, idx], axis=1)[:, ::2])))
+    np.testing.assert_array_equal(want, n(gk.take_cm(tab_t, wide)))
+
+
+def _minmax_case(kind, b=2, k=4096, seed=9):
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(-20, S + 20, (b, k)).astype(np.int32)
+    if kind == "sorted":
+        seg = np.sort(rng.integers(0, 300, (b, k)), axis=1).astype(np.int32)
+    val = rng.integers(-(2 ** 31), 2 ** 31 - 1, (b, k),
+                       dtype=np.int64).astype(np.int32)
+    if kind == "small":
+        val = rng.integers(-5000, 5000, (b, k)).astype(np.int32)
+    return seg, val
+
+
+@pytest.mark.parametrize("kind", ["wide", "small", "sorted"])
+def test_segment_min_max_bit_exact(kind):
+    seg, val = _minmax_case(kind)
+    want = gp.segment_min_max(jnp.asarray(seg), jnp.asarray(val), S,
+                              interpret=True)
+    ref = gp.segment_min_max_ref(jnp.asarray(seg), jnp.asarray(val), S)
+    before = gk.minmax_launches.count
+    for fn in (gk.segment_min_max_plain, gk.segment_min_max):
+        got = fn(t(seg), t(val), S)
+        for w, r, g in zip(want, ref, got, strict=True):
+            assert n(g).dtype == np.int32 and n(g).shape == (2, S)
+            np.testing.assert_array_equal(n(w), n(g))
+            np.testing.assert_array_equal(n(r), n(g))
+    assert gk.minmax_launches.count == before
+    mn, mx = (n(x) for x in want)
+    # values past +-2^30 are clamped; empty segments read +-2^30
+    assert mn.max() == 2 ** 30 and mx.min() == -2 ** 30
+    if kind == "sorted":
+        assert (mn[:, 300:] == 2 ** 30).all() and (mx[:, 300:] == -2 ** 30).all()
+
+
+def test_segment_min_max_of_noncontiguous_views():
+    seg, val = _minmax_case("small")
+    wseg = t(np.concatenate([seg, seg], axis=1))[:, :4096]
+    wval = t(np.concatenate([val, val], axis=1))[:, :4096]
+    assert not wseg.is_contiguous()
+    want = gp.segment_min_max_ref(jnp.asarray(seg), jnp.asarray(val), S)
+    for w, g in zip(want, gk.segment_min_max(wseg, wval, S), strict=True):
+        np.testing.assert_array_equal(n(w), n(g))

@@ -1,9 +1,12 @@
 """The port's runtime on the CPU: ros_vision_tpu_torch.launch.VisionSystem
 with mock cameras end to end (the configuration of
-tests/test_system_integration.py), TorchVisionNode's upload/submit/consume
-cycle, the package's independence from jax, and chip_smoke.py refusing to
-run without a card."""
+tests/test_system_integration.py), the port's VisionNode upload/submit/
+consume cycle, the port's own copies of the host modules against the JAX
+package's, the package's independence from jax and from ros_vision_tpu,
+and chip_smoke.py refusing to run without a card."""
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -14,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from ros_vision_tpu.apriltag.render import render_scene, simple_square_corners
+from ros_vision_tpu_torch.apriltag.render import (render_scene,
+                                                  simple_square_corners)
 from tests.torch_port_helpers import t  # noqa: F401  (sets torch threads)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -25,7 +29,7 @@ OVERRIDES = dict(max_points=4096, max_segments=64, max_quads=8, fx=300.0,
 
 @pytest.fixture()
 def config_file(tmp_path):
-    from ros_vision_tpu.config.loader import ConfigLoader
+    from ros_vision_tpu_torch.config.loader import ConfigLoader
     rot = [[0, 0, 1], [-1, 0, 0], [0, -1, 0]]
     cfg = {
         "camera_mounted_positions": {
@@ -70,9 +74,9 @@ def _scenes():
 
 
 def test_vision_system_end_to_end(config_file):
-    from ros_vision_tpu.runtime.camera import MockCamera
     from ros_vision_tpu_torch.launch import VisionSystem
-    from ros_vision_tpu_torch.runtime.vision_node import TorchVisionNode
+    from ros_vision_tpu_torch.runtime.camera import MockCamera
+    from ros_vision_tpu_torch.runtime.vision_node import VisionNode
 
     scenes = _scenes()
 
@@ -88,7 +92,7 @@ def test_vision_system_end_to_end(config_file):
         device="cpu", enable_viewer=False, enable_nt=False,
         camera_map={"mock0": 0, "mock1": 1}, camera_factory=factory,
         tag_sender=senders, detector_overrides=OVERRIDES)
-    assert isinstance(system.node, TorchVisionNode)
+    assert isinstance(system.node, VisionNode)
     assert system.mesh is None
     system.start()
     try:
@@ -125,17 +129,17 @@ def test_vision_system_end_to_end(config_file):
 
 
 def test_node_upload_submit_consume():
-    from ros_vision_tpu.runtime.vision_node import CameraChannel
     from ros_vision_tpu_torch.apriltag.detector import (PendingOutput,
                                                         TorchDetector)
-    from ros_vision_tpu_torch.runtime.vision_node import TorchVisionNode
+    from ros_vision_tpu_torch.runtime.vision_node import (CameraChannel,
+                                                          VisionNode)
 
     scenes = _scenes()
     frames = np.stack([scenes["mock0"], scenes["mock1"]])
     det = TorchDetector(device="cpu", width=W, height=H, **OVERRIDES)
     chans = [CameraChannel(location=f"cam{i}", extrinsic_rotation=np.eye(3),
                            extrinsic_offset=np.zeros(3)) for i in range(2)]
-    node = TorchVisionNode(det, chans, intrinsics=det.default_intrinsics(2))
+    node = VisionNode(det, chans, intrinsics=det.default_intrinsics(2))
     dev = node.upload(frames)
     assert isinstance(dev, torch.Tensor) and dev.device.type == "cpu"
     pending = node.submit(dev)
@@ -155,20 +159,117 @@ def _run(code_or_args, cwd, timeout=120):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, and chip_smoke, import neither jax nor
+    anything of the JAX package ros_vision_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ros_vision_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 15, mods\n"
+        "import chip_smoke\n"
+        "assert len(mods) >= 35, mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib')\n"
         "print('JAX', bad)\n"
-        "assert not bad, bad\n")
+        "ref = sorted(m for m in sys.modules if m == 'ros_vision_tpu' or "
+        "m.startswith('ros_vision_tpu.'))\n"
+        "print('REF', ref)\n"
+        "assert not bad and not ref, (bad, ref)\n")
     r = _run(["-c", code], cwd=ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "JAX []" in r.stdout
+    assert "JAX []" in r.stdout and "REF []" in r.stdout
+
+
+def test_port_sources_name_no_jax_package_import():
+    pattern = re.compile(r"(from|import) ros_vision_tpu(\.| |$)",
+                         re.MULTILINE)
+    files = sorted((ROOT / "ros_vision_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) >= 36
+    bad = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not bad, bad
+
+
+def test_family_copies_match():
+    from ros_vision_tpu.apriltag import families as jfam
+    from ros_vision_tpu_torch.apriltag import families as tfam
+    assert Path(tfam._DATA_PATH).parent == ROOT / "ros_vision_tpu_torch" \
+        / "apriltag"
+    names = jfam.list_families()
+    assert tfam.list_families() == names and "tag36h11" in names
+    for name in names:
+        a, b = jfam.get_family(name), tfam.get_family(name)
+        for field in dataclasses.fields(a):
+            va, vb = getattr(a, field.name), getattr(b, field.name)
+            if isinstance(va, np.ndarray):
+                np.testing.assert_array_equal(va, vb, err_msg=name)
+            else:
+                assert va == vb, (name, field.name)
+
+
+@pytest.mark.parametrize("family", ["tag36h11", "tag25h9", "tag16h5"])
+def test_render_copy_matches(family):
+    from ros_vision_tpu.apriltag import families as jfam
+    from ros_vision_tpu.apriltag import render as jr
+    from ros_vision_tpu_torch.apriltag import families as tfam
+    from ros_vision_tpu_torch.apriltag import render as tr
+    kw = dict(width=320, height=200, noise_sigma=1.5, seed=4)
+    corners = [(80, 70, 30, 10), (230, 120, 40, -25)]
+    ja, jp = jr.render_scene([3, 7], [jr.simple_square_corners(*c)
+                                      for c in corners],
+                             family=jfam.get_family(family), **kw)
+    ta, tp = tr.render_scene([3, 7], [tr.simple_square_corners(*c)
+                                      for c in corners],
+                             family=tfam.get_family(family), **kw)
+    assert ja.dtype == ta.dtype and ja.tobytes() == ta.tobytes()
+    for a, b in zip(jp, tp, strict=True):
+        assert a.tag_id == b.tag_id
+        np.testing.assert_array_equal(a.corners, b.corners)
+
+
+def test_config_loader_copy_matches(config_file):
+    from ros_vision_tpu.config.loader import ConfigLoader as JLoader
+    from ros_vision_tpu_torch.config.loader import ConfigLoader as TLoader
+    for path in (None, config_file):
+        JLoader.set_config_file_path(path)
+        TLoader.set_config_file_path(path)
+        JLoader.reload_config()
+        TLoader.reload_config()
+        serials = JLoader.get_all_camera_serials()
+        assert TLoader.get_all_camera_serials() == serials and serials
+        for serial in serials:
+            a = JLoader.get_camera_config(serial)
+            b = TLoader.get_camera_config(serial)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            ea = JLoader.get_extrinsic_config(a.location)
+            eb = TLoader.get_extrinsic_config(b.location)
+            assert (ea is None) == (eb is None)
+            if ea is not None:
+                assert dataclasses.asdict(ea) == dataclasses.asdict(eb)
+        for getter in ("get_network_tables_config",
+                       "get_bag_recording_config",
+                       "get_performance_config", "get_game_piece_config"):
+            assert dataclasses.asdict(getattr(JLoader, getter)()) == \
+                dataclasses.asdict(getattr(TLoader, getter)())
+    JLoader.set_config_file_path(None)
+    JLoader.reload_config()
+
+
+def test_rotation_utils_copy_matches():
+    from ros_vision_tpu.utils import rotation_utils as jru
+    from ros_vision_tpu_torch.utils import rotation_utils as tru
+    for deg in (-135.0, -30.0, 0.0, 45.0, 90.0, 200.0):
+        for fn in ("rot_x", "rot_y", "rot_z"):
+            np.testing.assert_array_equal(getattr(jru, fn)(deg),
+                                          getattr(tru, fn)(deg))
+        np.testing.assert_array_equal(
+            jru.compose_rotations_xyz(deg, deg / 2, -deg),
+            tru.compose_rotations_xyz(deg, deg / 2, -deg))
+        np.testing.assert_array_equal(jru.camera_mount_rotation(deg),
+                                      tru.camera_mount_rotation(deg))
+    np.testing.assert_array_equal(jru.camera_to_robot(),
+                                  tru.camera_to_robot())
 
 
 def test_chip_smoke_refuses_without_a_card():
