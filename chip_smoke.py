@@ -8,18 +8,31 @@ Phases, each of which raises (and so exits nonzero) on failure:
   1. build the kernels (one nvcc per csrc/*.cu, all started together,
      sm_90a) from the checkout;
   2. kernel checks: each of the eleven kernels against its plain PyTorch
-     version on the card, bit-exact, with the median of 20 CUDA event
-     timings of it, of its plain version and, where one PyTorch call
-     computes the same function, of that call, beside its bound (bytes
-     over the HBM rate or operations over the core rate). K1-K4 at the
-     1280x800 tag36h11 path's shapes (the 4-tag bench scene at B=4 with
-     four noise seeds, plus one cluttered frame that overflows both
-     boundary caps); K1 and K3 again at 1920x1080; K6, K7 and K12 at
-     1920x1080 (bench scene B=4 and a cluttered frame past the 2048-blob
-     rank space); K8 at 1280x800 B=4 with 448, 0 and 1 sweeps; K9 on the
-     operands of cluster_and_fit's four sorts at K = 8192, 32768 and
-     131072 plus random, duplicate, sentinel, K=1000 and payload rows;
-     K10 at B=4 S=1025 C=4 K=32768; K11 at B=4 K=131072 S=1025;
+     version on the card, bit-exact, timed two ways beside its plain
+     version and, where one PyTorch call computes the same function, that
+     call: call_ms, the median of 20 single calls each between its own
+     CUDA events (what the eager path pays, the host's enqueue included),
+     and device_ms, 20 calls enqueued behind a torch.cuda._sleep that
+     outlasts their enqueue (checked on the host clock and by the first
+     event still pending), so the device runs them back to back (the
+     row's ms; a plain version or library call that makes the host wait
+     on the device keeps its call time there, marked "call"); beside the
+     bound (bytes over the HBM rate or operations over the core rate),
+     which compares with device_ms. K1-K3 at the 1280x800 tag36h11
+     path's shapes (the 4-tag bench scene at B=4 with four noise seeds,
+     plus one cluttered frame that overflows both boundary caps) and
+     again at 1920x1080; K4 and K9 on the inputs that one
+     use_pallas_sort cluster_and_fit call gives them on those batches:
+     K4 on the segment ids and peak segments at (4, 32768) and
+     (4, 131072), one kernel launch a call, and its call time with and
+     without the launch path's cached lookups; K9 on the four sorts at
+     K = 8192, 32768 and 131072 plus random, duplicate, sentinel, K=1000,
+     payload (num_keys < operands) and K=200000 rows, bit-exact against
+     the network's plain version (payload order included), one kernel
+     launch a call up to N = 131,072; K6, K7 and K12 at 1920x1080 (bench
+     scene B=4 and a cluttered frame past the 2048-blob rank space); K8
+     at 1280x800 B=4 with 448, 0 and 1 sweeps; K10 at B=4 S=1025 C=4
+     K=32768; K11 at B=4 K=131072 S=1025;
   3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
      on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
      every row, corners within 0.1 px of the same detector's plain path on
@@ -27,7 +40,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
      front end's kernel set launched (K2 at 1280x800, K6 + K7 at
      1920x1080); then TorchDetector(use_pallas_sort=True) at B=4 at both
      sizes, its packed output bit-identical to the default's, its kernel
-     set the path's plus K9 with 4 K9 launches per call;
+     set the path's plus K9 with 4 K9 calls and 4 kernel launches per
+     call (K4: one kernel launch per call on every detector path);
   4. the other ops/ccl.py entry points: label_components_hybrid (K8),
      flood_ranks (K6, K7, K12) and label_components_flood with
      broadcast="flood" (K6, K7), each held against the plain CCL;
@@ -116,8 +130,10 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
           f"{counts}")
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median device time of fn() over `reps` runs (CUDA events)."""
+def call_ms(fn, reps: int = REPS) -> float:
+    """Median over `reps` single calls of fn(), each between its own pair
+    of CUDA events: what the eager main path pays per call, the host's
+    enqueue included."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -131,6 +147,88 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """torch.cuda._sleep's cycles per ms on this card (measured once)."""
+    import torch
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)                     # warm-up
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / a.elapsed_time(b))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def host_waits(fn) -> bool:
+    """Whether fn() makes the host wait on the device (an .item(), a
+    blocking copy, torch.equal): torch's sync debug mode raises on one."""
+    import torch
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return False
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+
+
+def device_ms(fn, est_ms: float, reps: int = REPS) -> float | None:
+    """Device time per call of fn(): the calls are enqueued behind a
+    torch.cuda._sleep that outlasts their enqueue, between two CUDA
+    events, so the device runs them back to back and the host's enqueue
+    is not in the time. The sleep is checked to have outlasted the
+    enqueue on the host clock and by the first event still pending when
+    the last call is enqueued; it is lengthened once if not, and then one
+    call is tried alone (a function of hundreds of launches fills the
+    launch queue, and the host then waits for the device). None where fn
+    makes the host wait on the device or no sleep outlasts one call's
+    enqueue. est_ms is fn's call time; the calls are as many as fit in
+    ~200 ms."""
+    import torch
+    if host_waits(fn):
+        return None
+    many = max(1, min(reps, int(200 / max(est_ms, 1e-3))))
+    for n in sorted({many, 1}, reverse=True):
+        sleep_ms = 5.0 + 2.0 * n * est_ms
+        for _ in range(2):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            b.record()
+            covered = not a.query()
+            b.synchronize()
+            if covered and enqueue_ms < sleep_ms:
+                return a.elapsed_time(b) / n
+            sleep_ms *= 4.0
+    return None
+
+
+def both_ms(fn) -> dict:
+    """call_ms and device_ms of fn(); device_ms None where it cannot be
+    taken apart from the host (see device_ms)."""
+    c = call_ms(fn)
+    return dict(call_ms=c, device_ms=device_ms(fn, c))
 
 
 def max_abs_err(name: str, got, want) -> float:
@@ -172,6 +270,7 @@ def bound_ms(inputs, outputs, ops: float = 0.0):
 
 def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     import torch
+    from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.ops import ccl
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
@@ -191,17 +290,47 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     k_cap2 = 131072                        # auto max_points at 1920x1080
     p_cap2 = qf.QuadFitConfig(max_points=k_cap2).max_boundary_pixels
 
-    def record(name, src, replaces, err, kernel, plain, at, inputs,
-               library=None, ops=0.0):
-        """Time the kernel, its plain version and (where one PyTorch call
-        computes the same function) the library call on the same inputs;
-        the bound from the inputs and the kernel's outputs."""
+    def timings(kernel, plain, library) -> dict:
+        """ms / call_ms of the kernel, plain_ms / plain_call_ms of its
+        plain version and library_ms / library_call_ms of the library call
+        (None where there is none): ms, plain_ms and library_ms are device
+        times (device_ms). Where a plain version or library call makes the
+        host wait on the device, its device time cannot be taken apart
+        from the host; its call time stands there and its *_ms_kind says
+        "call"."""
+        t = both_ms(kernel)
+        check(t["device_ms"] is not None,
+              "a kernel's device time could not be taken apart from its "
+              "enqueue")
+        out = dict(ms=t["device_ms"], call_ms=t["call_ms"])
+        for tag, fn in (("plain", plain), ("library", library)):
+            if fn is None:
+                out.update({f"{tag}_ms": None, f"{tag}_call_ms": None})
+                continue
+            t = both_ms(fn)
+            dms = t["device_ms"]
+            out[f"{tag}_ms"] = t["call_ms"] if dms is None else dms
+            out[f"{tag}_ms_kind"] = "call" if dms is None else "device"
+            out[f"{tag}_call_ms"] = t["call_ms"]
+        return out
+
+    def shape_entry(at, kernel, plain, inputs, library=None, ops=0.0):
+        """Times and bound of a kernel at one shape (see timings)."""
         bound, by = bound_ms(inputs, kernel(), ops)
+        return dict(at=at, **timings(kernel, plain, library), bound_ms=bound,
+                    bound_by=by)
+
+    def record(name, src, replaces, err, kernel, plain, at, inputs,
+               library=None, ops=0.0, also=()):
+        """The kernel's row: its times, its plain version's and (where one
+        PyTorch call computes the same function) the library call's on the
+        same inputs; the bound from the inputs and the kernel's outputs;
+        `also` holds the same at the path's other shapes."""
         results.append(dict(
             name=name, route="cuda", source=f"ros_vision_tpu_torch/csrc/{src}",
-            replaces=replaces, max_abs_err=err, ms=cuda_ms(kernel),
-            plain_ms=cuda_ms(plain), bound_ms=bound, bound_by=by,
-            library_ms=None if library is None else cuda_ms(library), at=at))
+            replaces=replaces, max_abs_err=err,
+            **shape_entry(at, kernel, plain, inputs, library, ops),
+            also=list(also)))
 
     def flat_init(t):
         b, h, w = t.shape
@@ -215,11 +344,10 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     record("adaptive_threshold", "threshold.cu",
            "ros_vision_tpu/ops/threshold_pallas.py:122", err,
            lambda: tk.adaptive_threshold_fused(g4),
-           lambda: tk.adaptive_threshold_plain(g4), "1280x800 B=4", [g4])
-    ms = cuda_ms(lambda: tk.adaptive_threshold_fused(g2))
-    plain_ms = cuda_ms(lambda: tk.adaptive_threshold_plain(g2))
-    print(f"  adaptive_threshold at 1920x1080 B=4: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+           lambda: tk.adaptive_threshold_plain(g4), "1280x800 B=4", [g4],
+           also=[shape_entry("1920x1080 B=4",
+                             lambda: tk.adaptive_threshold_fused(g2),
+                             lambda: tk.adaptive_threshold_plain(g2), [g2])])
     d4, t4 = tk.adaptive_threshold_plain(g4)
     _, tc = tk.adaptive_threshold_plain(gc)
     d2, t2 = tk.adaptive_threshold_plain(g2)
@@ -266,34 +394,74 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            "ros_vision_tpu/ops/frontend_pallas.py:749", err,
            lambda: fk.boundary_compact(t4, r4, p_cap, k_cap),
            lambda: qf.boundary_points_capped(t4, r4.reshape(4, -1), p_cap,
-                                             k_cap), "1280x800 B=4", [t4, r4])
-    ms = cuda_ms(lambda: fk.boundary_compact(t2, r2, p_cap2, k_cap2))
-    plain_ms = cuda_ms(lambda: qf.boundary_points_capped(
-        t2, r2.reshape(4, -1), p_cap2, k_cap2))
-    print(f"  boundary_compact at 1920x1080 B=4: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+                                             k_cap), "1280x800 B=4", [t4, r4],
+           also=[shape_entry(
+               "1920x1080 B=4",
+               lambda: fk.boundary_compact(t2, r2, p_cap2, k_cap2),
+               lambda: qf.boundary_points_capped(t2, r2.reshape(4, -1),
+                                                 p_cap2, k_cap2), [t2, r2])])
 
-    # K4: the segment ids cluster_and_fit feeds it, at the narrow (8192)
-    # and full (32768) widths, plus out-of-range values
+    # the sort operands and histogram inputs of one use_pallas_sort
+    # cluster_and_fit call on the bench batches: at the narrow 1280x800
+    # width (8192), the full 1280x800 width (32768) and 1920x1080 (131072)
     key, pack2, _ = fk.boundary_compact(t4, r4, p_cap, k_cap)
-    key_s, _ = qf._sort2(key, pack2)
-    seg = segs.segment_ids_from_sorted_keys(
-        key_s, valid=key_s < qf.KEY_INVALID, max_segments=1024)
+    key2, pack22, _ = fk.boundary_compact(t2, r2, p_cap2, k_cap2)
+    captured = {}
+    for label, pts, decim, k in (
+            ("1280x800 K=8192", {"key": key[:, :8192],
+                                 "pack2": pack2[:, :8192]}, d4, 8192),
+            ("1280x800 K=32768", {"key": key, "pack2": pack2}, d4, k_cap),
+            ("1920x1080 K=131072", {"key": key2, "pack2": pack22}, d2,
+             k_cap2)):
+        captured[label] = capture_calls(pts, decim, k)
+
+    # K4 on those histogram inputs (segment ids, then peak segments; one
+    # kernel launch a call), plus out-of-range values
+    seg, peak = captured["1280x800 K=32768"]["hists"]
+    seg2, peak2 = captured["1920x1080 K=131072"]["hists"]
     rng = np.random.default_rng(3)
     odd = torch.from_numpy(rng.integers(-5, 1100, (4, 8192),
                                         dtype=np.int32)).to(dev)
-    seg_n = seg[:, :8192].contiguous()
-    err = max(max_abs_err("value_histogram", (gk.histogram(v, 1025),),
-                          (gk.value_histogram_plain(v, 1025),))
-              for v in (seg_n, seg, odd))
+    err = 0.0
+    for v in [odd] + [h for c in captured.values() for h in c["hists"]]:
+        before = gk.launches.kernels
+        got = gk.histogram(v, 1025)
+        check(gk.launches.kernels - before == 1,
+              f"value_histogram made {gk.launches.kernels - before} kernel "
+              "launches in one call, not 1")
+        err = max(err, max_abs_err("value_histogram", (got,),
+                                   (gk.value_histogram_plain(v, 1025),)))
     hist_out = torch.zeros((4, 1025), dtype=torch.int32, device=dev)
-    seg_n64 = seg_n.to(torch.int64)
-    ones_n = torch.ones_like(seg_n)
+
+    def k4(v):
+        v64, ones = v.to(torch.int64), torch.ones_like(v)
+        return dict(kernel=lambda: gk.histogram(v, 1025),
+                    plain=lambda: gk.value_histogram_plain(v, 1025),
+                    library=lambda: hist_out.scatter_add_(1, v64, ones),
+                    inputs=[v])
+
     record("value_histogram", "histogram.cu",
            "ros_vision_tpu/ops/gather_pallas.py:168", err,
-           lambda: gk.histogram(seg_n, 1025),
-           lambda: gk.value_histogram_plain(seg_n, 1025), "1280x800 B=4",
-           [seg_n], library=lambda: hist_out.scatter_add_(1, seg_n64, ones_n))
+           at="1280x800 B=4 K=32768 (segment ids)", **k4(seg),
+           also=[shape_entry(at, **k4(v)) for at, v in (
+               ("1920x1080 B=4 K=131072 (segment ids)", seg2),
+               ("1280x800 B=4 K=32768 (peak segments)", peak),
+               ("1920x1080 B=4 K=131072 (peak segments)", peak2))])
+    # the wrapper's call time with the launch path's cached lookups and
+    # without them, in turns
+    fast = [call_ms(lambda: gk.histogram(seg, 1025))]
+    cached = _build.launch
+    _build.launch = launch_looked_up_per_call
+    try:
+        slow = [call_ms(lambda: gk.histogram(seg, 1025)) for _ in range(2)]
+    finally:
+        _build.launch = cached
+    fast.append(call_ms(lambda: gk.histogram(seg, 1025)))
+    results[-1]["call_ms_by_launch_path"] = dict(cached=fast,
+                                                 looked_up_per_call=slow)
+    print(f"  value_histogram call ms at (4, 32768), in turns: cached "
+          f"lookups {fast[0]:.4f}, per-call lookups {slow[0]:.4f} "
+          f"{slow[1]:.4f}, cached {fast[1]:.4f}")
 
     # K6 at 960x540: flat indices (the labels of label_components_flood),
     # the packed per-root table (its broadcast="flood"; INT32_MAX off the
@@ -357,28 +525,26 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            lambda: ccl.propagate(t4, init4, 448), "1280x800 B=4, 448 sweeps",
            [t4, init4], ops=448 * 8 * t4.numel())
 
-    # K9: the operands of cluster_and_fit's four sorts (use_pallas_sort)
-    # on the bench scenes at the narrow 1280x800 width (8192), the full
-    # 1280x800 width (32768) and 1920x1080 (131072)
-    key2, pack22, _ = fk.boundary_compact(t2, r2, p_cap2, k_cap2)
-    captured = {}
-    for label, pts, decim, k in (
-            ("1280x800 K=8192", {"key": key[:, :8192],
-                                 "pack2": pack2[:, :8192]}, d4, 8192),
-            ("1280x800 K=32768", {"key": key, "pack2": pack2}, d4, k_cap),
-            ("1920x1080 K=131072", {"key": key2, "pack2": pack22}, d2,
-             k_cap2)):
-        captured[label] = capture_sorts(pts, decim, k)
+    # K9 on the operands of cluster_and_fit's four sorts, at each width:
+    # bit-exact against the network's plain version, one kernel launch a
+    # call; their times go into the row's `also`
     err = 0.0
+    sort_shapes = []
     for label, calls in captured.items():
-        check([(len(ops), nk) for ops, nk in calls]
+        sorts = calls["sorts"]
+        check([(len(ops), nk) for ops, nk in sorts]
               == [(2, 2), (1, 1), (2, 2), (3, 3)],
-              f"{label}: cluster_and_fit sorts {[(len(o), nk) for o, nk in calls]}")
-        for ops, nk in calls:
+              f"{label}: cluster_and_fit sorts "
+              f"{[(len(o), nk) for o, nk in sorts]}")
+        for ops, nk in sorts:
             err = max(err, sort_err(ops, nk))
-            print(f"  sort_tpu {label}, {len(ops)} operand(s): kernel "
-                  f"{cuda_ms(lambda: sk.sort_tpu(ops, nk)):.4f} ms, plain "
-                  f"{cuda_ms(lambda: sk.sort_plain(ops, nk)):.4f} ms")
+            sort_shapes.append(shape_entry(
+                f"{label}, {len(ops)} plane(s)",
+                lambda: sk.sort_tpu(ops, nk), lambda: sk.sort_plain(ops, nk),
+                ops, library=library_sort(ops),
+                ops=2 * ops[0].numel() * (ops[0].shape[1] - 1)
+                .bit_length()))
+
     def b4(lo, hi, k):
         """(4, k) int32 uniform in [lo, hi) on the card."""
         return torch.from_numpy(rng.integers(lo, hi, (4, k), dtype=np.int64)
@@ -390,19 +556,24 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     peak = [b4(0, 65, 1000), -b4(0, 1 << 30, 1000),
             torch.arange(1000, dtype=torch.int32, device=dev).expand(
                 4, 1000).contiguous()]
+    # random, duplicate, sentinel and peak-pattern rows, payload planes
+    # (num_keys < operands) and N = 262,144 past one cluster's 131,072
     for ops, nk in (([b4(0, 1 << 22, 131072), b4(0, 1 << 22, 131072)], 2),
                     ([b4(0, 7, 32768), b4(0, 5, 32768)], 2),
                     ([sentinel, torch.zeros_like(sentinel)], 2),
                     (peak, 3), ([b4(-2 ** 31, 2 ** 31 - 1, 1000)], 1),
-                    ([b4(0, 50, 8192), b4(-1000, 1000, 8192)], 1)):
+                    ([b4(0, 50, 8192), b4(-1000, 1000, 8192)], 1),
+                    ([b4(0, 9, 131072), b4(0, 3, 131072), b4(-9, 9, 131072)],
+                     1),
+                    ([b4(0, 50, 16385), b4(-5, 5, 16385)], 1),
+                    ([b4(0, 1000, 200000), b4(0, 1 << 20, 200000)], 1)):
         err = max(err, sort_err(ops, nk))
-    ops = captured["1920x1080 K=131072"][0][0]
-    packed = (ops[0].to(torch.int64) << 32) | ops[1].to(torch.int64)
+    ops = captured["1920x1080 K=131072"]["sorts"][0][0]
     record("sort_tpu", "sort.cu", "ros_vision_tpu/ops/sort_pallas.py:146",
            err, lambda: sk.sort_tpu(ops, 2), lambda: sk.sort_plain(ops, 2),
            "1920x1080 B=4 K=131072, (pair key, payload) as keys", ops,
-           library=lambda: torch.sort(packed, dim=1, stable=True),
-           ops=2 * ops[0].numel() * 17)
+           library=library_sort(ops), ops=2 * ops[0].numel() * 17,
+           also=sort_shapes)
 
     # K10 at the shape of cluster_and_fit's (B, NSEG1, 4) per-segment table
     # gathered at its (B, 32768) segment ids; random indices (some outside
@@ -447,51 +618,95 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            library=lambda: (mn_out.scatter_reduce_(1, seg2_64, y2, "amin"),
                             mx_out.scatter_reduce_(1, seg2_64, y2, "amax")))
     for r in results:
-        lib = "none" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
-        print(f"  {r['name']}: max abs err {r['max_abs_err']} (bit-exact); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {lib}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) ({r['at']}, median of {REPS})")
+        for e in [r] + r["also"]:
+            print(f"  {r['name']} at {e['at']}: kernel {e['ms']:.4f} ms "
+                  f"device / {e['call_ms']:.4f} call; plain "
+                  f"{e['plain_ms']:.4f} ({e['plain_ms_kind']}) / "
+                  f"{e['plain_call_ms']:.4f} call; library "
+                  + ("none" if e["library_ms"] is None else
+                     f"{e['library_ms']:.4f} ({e['library_ms_kind']}) / "
+                     f"{e['library_call_ms']:.4f} call")
+                  + f"; bound {e['bound_ms']:.5f} ms ({e['bound_by']})")
+        print(f"  {r['name']}: max abs err {r['max_abs_err']} (bit-exact)")
     return results, dict(t4=t4, t2=t2)
 
 
-def capture_sorts(pts: dict, decim, k: int) -> list:
-    """The operands and num_keys of the sort_tpu calls that
-    cluster_and_fit makes with use_pallas_sort on these points."""
+def capture_calls(pts: dict, decim, k: int) -> dict:
+    """The sort_tpu operands (with num_keys) and the value_histogram inputs
+    of one cluster_and_fit call with use_pallas_sort on these points."""
     from ros_vision_tpu_torch.ops import quadfit as qf
     from ros_vision_tpu_torch.ops import sort_kernel as sk
-    calls = []
-    real = sk.sort_tpu
+    sorts, hists = [], []
+    real_sort, real_hist = sk.sort_tpu, qf.histogram
 
-    def recording(operands, num_keys=1):
+    def sort_recording(operands, num_keys=1):
         operands = list(operands)
-        calls.append(([o.contiguous().clone() for o in operands], num_keys))
-        return real(operands, num_keys)
+        sorts.append(([o.contiguous().clone() for o in operands], num_keys))
+        return real_sort(operands, num_keys)
 
-    sk.sort_tpu = recording
+    def hist_recording(values, num_values):
+        check(num_values == 1025, f"histogram of {num_values} bins")
+        hists.append(values.contiguous().clone())
+        return real_hist(values, num_values)
+
+    sk.sort_tpu, qf.histogram = sort_recording, hist_recording
     try:
         qf.cluster_and_fit(pts, decim, qf.QuadFitConfig(
             max_points=k, use_pallas_sort=True))
     finally:
-        sk.sort_tpu = real
-    return calls
+        sk.sort_tpu, qf.histogram = real_sort, real_hist
+    check(len(hists) == 2, f"cluster_and_fit made {len(hists)} histograms")
+    return dict(sorts=sorts, hists=hists)
+
+
+def library_sort(ops: list):
+    """One stable torch.sort computing K9's function where every operand is
+    a key: of the plane itself, or of the int64 packing of two planes
+    (nonnegative keys, as cluster_and_fit's); None for three planes."""
+    import torch
+    if len(ops) == 1:
+        return lambda: torch.sort(ops[0], dim=1, stable=True)
+    if len(ops) == 2:
+        packed = (ops[0].to(torch.int64) << 32) | ops[1].to(torch.int64)
+        return lambda: torch.sort(packed, dim=1, stable=True)
+    return None
 
 
 def sort_err(ops: list, num_keys: int) -> float:
-    """K9 against its plain version: every plane bit-exact where every
-    operand is a key; otherwise the keys bit-exact and the payload equal
-    as a multiset within each run of equal keys (both outputs put in the
-    canonical order of a sort by every plane)."""
+    """K9 against the network's plain version, every plane bit-exact
+    (payload order included), and against the stable plain version where
+    every operand is a key; the C launcher's count of kernel launches
+    equals the plan's, which is 1 for N <= 131,072."""
     from ros_vision_tpu_torch.ops import sort_kernel as sk
+    before = sk.launches.kernels
     got = sk.sort_tpu(ops, num_keys)
-    want = sk.sort_plain(ops, num_keys)
+    made = sk.launches.kernels - before
+    plan = sk.sort_plan(ops[0].shape[1], len(ops))
+    check(made == plan.launches and (plan.n > 131072 or made == 1),
+          f"sort_tpu at K={ops[0].shape[1]} made {made} kernel launches "
+          f"(plan {plan.launches})")
+    err = max_abs_err("sort_tpu", got, sk.sort_network_plain(ops, num_keys))
     if num_keys == len(ops):
-        return max_abs_err("sort_tpu", got, want)
-    err = max_abs_err("sort_tpu keys", got[:num_keys], want[:num_keys])
-    return max(err, max_abs_err(
-        "sort_tpu payload", sk.sort_plain(got, len(got)),
-        sk.sort_plain(want, len(want))))
+        err = max(err, max_abs_err("sort_tpu vs stable sorts", got,
+                                   sk.sort_plain(ops, num_keys)))
+    return err
+
+
+def launch_looked_up_per_call(name: str, device, *args) -> None:
+    """_build.launch without its cached lookups: the library's lock, a
+    getattr of the launcher and a torch.cuda.Stream on every call (kept to
+    time the wrapper's call both ways)."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    with _build.LIBRARY._lock:
+        lib = _build.LIBRARY.get()
+    conv = [None if a is None else a.data_ptr()
+            if isinstance(a, torch.Tensor) else int(a) for a in args]
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name)(*conv, index, stream)
+    check(rc == 0, f"{name}: CUDA launch failed with error {rc}")
 
 
 def match_corners(dets, placed_list, tol: float, what: str) -> float:
@@ -555,6 +770,10 @@ def detector_phase(dev, bench4, placed, must: set):
     counts = _build.counts()
     print(f"  launches in the detector phase: {counts}")
     check_kernel_set(f"detector {width}x{height}", counts, must)
+    kernels = _build.kernel_counts()["value_histogram"]
+    check(kernels == counts["value_histogram"],
+          f"value_histogram: {kernels} kernel launches for "
+          f"{counts['value_histogram']} calls, not one each")
     return out, counts
 
 
@@ -584,8 +803,13 @@ def pallas_sort_phase(dev, bench4, must: set):
     print(f"  launches in one use_pallas_sort call: {counts}")
     check_kernel_set(f"use_pallas_sort detector {width}x{height}", counts,
                      must | {"sort_tpu"})
-    check(counts["sort_tpu"] == 4,
-          f"sort_tpu launched {counts['sort_tpu']} times, not 4")
+    kernels = _build.kernel_counts()
+    check(counts["sort_tpu"] == 4 and kernels["sort_tpu"] == 4,
+          f"sort_tpu: {counts['sort_tpu']} calls and {kernels['sort_tpu']} "
+          "kernel launches, not 4 of each")
+    check(kernels["value_histogram"] == counts["value_histogram"] == 2,
+          f"value_histogram: {counts['value_histogram']} calls and "
+          f"{kernels['value_histogram']} kernel launches, not 2 of each")
     max_abs_err("use_pallas_sort packed output", (got,), (want,))
     for i, dets in enumerate(det_ps.unpack(got)):
         ids = [d.tag_id for d in dets]

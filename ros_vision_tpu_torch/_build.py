@@ -7,7 +7,8 @@ under ``build/ros_vision_tpu_torch/`` beside the package, named by a hash
 of the sources and flags so an edited source is never served a stale
 binary. Nothing is compiled at import: the first kernel launch builds and
 loads the library. Each C launcher enqueues on the stream it is given,
-allocates nothing, and returns ``cudaGetLastError()``; :func:`launch`
+allocates nothing, and returns ``cudaGetLastError()`` (or -1 where the
+device cannot place a kernel's thread-block cluster); :func:`launch`
 raises on anything but 0.
 """
 from __future__ import annotations
@@ -43,8 +44,9 @@ _SIGNATURES = {
     # threshim, ranks, maskbits, pm, blk_a, blk_b, key, pack2, counts,
     # b, h, w, p_cap, k_cap
     "rvt_boundary_compact": [_P] * 9 + [_I] * 5,
-    # values, out, b, k, num_values
-    "rvt_value_histogram": [_P] * 2 + [_I] * 3,
+    # values, out, launches, b, k, num_values, cluster, threads, per_rank,
+    # smem
+    "rvt_value_histogram": [_P] * 3 + [_I] * 7,
     # threshim, values, labels, rootmin, out, b, h, w
     "rvt_propagate_fixpoint": [_P] * 5 + [_I] * 3,
     # labels, counts, b, n
@@ -53,8 +55,9 @@ _SIGNATURES = {
     "rvt_propagate": [_P] * 5 + [_I] * 4,
     # labels, rank_v, out, b, n
     "rvt_rank_gather": [_P] * 3 + [_I] * 2,
-    # in0..2, work0..2, out0..2, b, k, n, nops, nkeys
-    "rvt_sort": [_P] * 9 + [_I] * 5,
+    # in0..2, work0..2, out0..2, launches, b, k, n, nops, nkeys, tile,
+    # cluster, threads, smem
+    "rvt_sort": [_P] * 10 + [_I] * 9,
     # table, idx, out, b, s, c, k
     "rvt_table_take_cm": [_P] * 3 + [_I] * 4,
     # seg, val, mn, mx, b, k, s
@@ -131,6 +134,8 @@ class KernelLibrary:
         return out
 
     def get(self) -> ctypes.CDLL:
+        if self._lib is not None:
+            return self._lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
@@ -147,11 +152,14 @@ LIBRARY = KernelLibrary()
 
 class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
-    else, so a run can show that the main path went through the kernel."""
+    else, so a run can show that the main path went through the kernel.
+    `kernels` sums the device kernel launches that C launchers which
+    report them (K4, K9) made for those calls."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.kernels = 0
 
 
 COUNTERS: dict[str, LaunchCounter] = {}
@@ -165,23 +173,42 @@ def counter(name: str) -> LaunchCounter:
 def reset_counts() -> None:
     for c in COUNTERS.values():
         c.count = 0
+        c.kernels = 0
 
 
 def counts() -> dict[str, int]:
     return {n: c.count for n, c in COUNTERS.items()}
 
 
+def kernel_counts() -> dict[str, int]:
+    return {n: c.kernels for n, c in COUNTERS.items()}
+
+
+_FUNCS: dict = {}          # launcher name -> its ctypes function
+# the current stream's handle without building a torch.cuda.Stream (every
+# CUDA build of torch has it; a CPU build never launches)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+CLUSTER_UNPLACEABLE = -1
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call launcher `name` with tensors passed as device pointers (None ->
     NULL) and ints as ints, on `device`'s current stream; raise if the
-    launch reported an error."""
-    lib = LIBRARY.get()
-    conv = [None if a is None else a.data_ptr()
-            if isinstance(a, torch.Tensor) else int(a) for a in args]
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, name)(*conv, index, stream)
+    launch reported an error. The ctypes function is looked up once per
+    name."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        fn = _FUNCS[name] = getattr(LIBRARY.get(), name)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor)
+              else None if a is None else int(a) for a in args],
+            index, _RAW_STREAM(index))
+    if rc == CLUSTER_UNPLACEABLE:
+        raise RuntimeError(f"{name}: the device cannot place the kernel's "
+                           "thread-block cluster "
+                           "(cudaOccupancyMaxActiveClusters is 0)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 

@@ -4,60 +4,139 @@
 // Replaces ros_vision_tpu/ops/gather_pallas.py value_histogram
 // (pallas_call at :168, kernel body _make_hist_kernel:131), which
 // cluster_and_fit calls for the per-segment point and peak counts
-// (quadfit.py:326,672) at (B, 8192) or (B, 32768) with S = 1025.
+// (quadfit.py:278,492) at (B, 32768) (1280x800) and (B, 131072)
+// (1920x1080) with S = 1025.
 //
-// Bound on the H100: launch latency and shared-memory atomics. The input
-// is 32-128 KB per frame, far below any bandwidth limit. The TPU kernel
-// built one-hot (K_TILE, 512) planes and summed them because the TPU has
-// no scatter-add; here each block keeps a private S-bin histogram of its
-// batch row in shared memory (4.1 KB), counts its slice with shared
-// atomicAdd, and adds the non-zero bins into the zeroed global row. The
-// segment ids arrive sorted, so neighbouring lanes mostly hold the same
-// value: lanes are grouped with __match_any_sync and one leader per group
-// adds the group's popcount, which removes the same-address serialisation.
+// Bound on the H100: bytes (128-512 KB per frame, ~0.2-0.6 us at 3.35
+// TB/s); in practice a launch and the counting's shared-memory atomics.
+// The TPU kernel built one-hot (K_TILE, 512) planes and summed them
+// because the TPU has no scatter-add. Here one thread-block cluster of C =
+// 8 blocks takes a row in one launch:
+//   - counting: each block counts its slices of the row (4,096 values a
+//     block at K = 32,768, 16,384 at 131,072) into its own S-bin table in
+//     shared memory. The values arrive as sorted segment ids or mostly the
+//     sentinel S - 1, so neighbouring lanes mostly hold the same value:
+//     lanes are grouped with __match_any_sync and one leader per group adds
+//     the group's popcount, which removes the same-address serialisation;
+//   - merge: after cluster.sync(), block rank r sums bins
+//     [r * ceil(S / C), (r + 1) * ceil(S / C)) over the C tables through
+//     distributed shared memory and writes that slice of the output row
+//     with plain coalesced stores;
+//   - a second cluster.sync() keeps every table alive until it is read.
+// Every output bin is written exactly once: no memset of the output and no
+// global atomics. Counts are integers, so the result is bit-exact in any
+// order. S is at most 8,192 (one 32 KB table).
+//
+// The host-side plan (C, threads, bins per rank, shared bytes) comes from
+// ops/gather_kernel.py histogram_plan; rvt_value_histogram checks it.
+#include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItemsPerThread = 4;
+constexpr int kCluster = 8;
+constexpr int kThreads = 1024;
+constexpr int kItems = 4;  // values a thread loads before counting them
+constexpr int kMaxBins = 8192;
+constexpr int kMaxDevices = 64;
+constexpr int kClusterUnplaceable = -1;
 
-__global__ void hist_kernel(const int* __restrict__ values, int* out, int k,
-                            int s) {
+__global__ void __launch_bounds__(kThreads)
+    hist_cluster_kernel(const int* __restrict__ values, int* out, int k,
+                        int s, int per_rank) {
   extern __shared__ int bins[];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < s; i += blockDim.x) bins[i] = 0;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  for (int i = tid; i < s; i += blockDim.x) bins[i] = 0;
   __syncthreads();
-  const int* v = values + (size_t)b * k;
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * blockDim.x;
+  const int* v = values + (size_t)blockIdx.y * k;
+  const int span = blockDim.x * kItems;
   // the loop bound is uniform over the block, so every lane of every warp
   // reaches __match_any_sync together
-  for (int base = blockIdx.x * blockDim.x; base < k; base += stride) {
-    const int i = base + threadIdx.x;
-    const int val = i < k ? v[i] : -1;
-    const bool in = val >= 0 && val < s;
-    const unsigned peers = __match_any_sync(0xffffffffu, in ? val : -1);
-    if (in && lane == __ffs(peers) - 1) atomicAdd(bins + val, __popc(peers));
+  for (int base = rank * span; base < k; base += c * span) {
+    int val[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = base + it * blockDim.x + tid;
+      val[it] = i < k ? v[i] : -1;
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const bool in = val[it] >= 0 && val[it] < s;
+      const unsigned peers = __match_any_sync(0xffffffffu, in ? val[it] : -1);
+      if (in && lane == __ffs(peers) - 1)
+        atomicAdd(bins + val[it], __popc(peers));
+    }
   }
-  __syncthreads();
-  int* o = out + (size_t)b * s;
-  for (int i = threadIdx.x; i < s; i += blockDim.x)
-    if (bins[i] != 0) atomicAdd(o + i, bins[i]);
+  cluster.sync();
+  int* o = out + (size_t)blockIdx.y * s;
+  const int hi = min(s, (rank + 1) * per_rank);
+  for (int i = rank * per_rank + tid; i < hi; i += blockDim.x) {
+    int sum = 0;
+    for (int r = 0; r < c; ++r) sum += cluster.map_shared_rank(bins, r)[i];
+    o[i] = sum;
+  }
+  cluster.sync();
+}
+
+// Once per process and device: that the device can place the cluster.
+int prepare(int device, const cudaLaunchConfig_t& cfg) {
+  static std::atomic<int> placed[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (placed[device].load(std::memory_order_acquire)) return 0;
+  cudaLaunchConfig_t one = cfg;
+  one.gridDim = dim3(kCluster, 1, 1);
+  one.dynamicSmemBytes = sizeof(int) * kMaxBins;
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, hist_cluster_kernel, &one);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return kClusterUnplaceable;
+  placed[device].store(1, std::memory_order_release);
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int rvt_value_histogram(const int* values, int* out, int b, int k,
-                                   int s, int device, cudaStream_t stream) {
+// values (B, K), out (B, S); cluster, threads, per_rank and smem the plan of
+// ops/gather_kernel.py histogram_plan. *launches receives the number of
+// kernel launches made. Returns a cudaError_t, or -1 when the device
+// cannot place the cluster.
+extern "C" int rvt_value_histogram(const int* values, int* out,
+                                   int* launches, int b, int k, int s,
+                                   int cluster, int threads, int per_rank,
+                                   int smem, int device,
+                                   cudaStream_t stream) {
+  *launches = 0;
   cudaSetDevice(device);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)b * s,
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
-  const int per_block = kThreads * kItemsPerThread;
-  const int nx = (k + per_block - 1) / per_block;
-  hist_kernel<<<dim3(nx > 0 ? nx : 1, b), kThreads, sizeof(int) * s,
-                stream>>>(values, out, k, s);
-  return (int)cudaGetLastError();
+  if (b == 0 || s == 0) return 0;
+  if (s < 0 || s > kMaxBins || k < 0 || cluster != kCluster ||
+      threads != kThreads || per_rank != (s + kCluster - 1) / kCluster ||
+      smem != (int)sizeof(int) * s)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, b, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const int err = prepare(device, cfg);
+  if (err != 0) return err;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, hist_cluster_kernel, values,
+                                            out, k, s, per_rank);
+  *launches = rc == cudaSuccess;
+  return (int)rc;
 }

@@ -4,7 +4,8 @@ gather.
 K4, out[b, s] = #(values[b] == s), replaces
 ros_vision_tpu/ops/gather_pallas.py value_histogram (the per-segment
 counts of cluster_and_fit); values outside [0, num_values) are not
-counted. K10, out[b, c, k] = table[b, idx[b, k], c] (0 for an index
+counted. It runs one thread-block cluster per row in one launch
+(histogram_plan), for num_values up to 8,192. K10, out[b, c, k] = table[b, idx[b, k], c] (0 for an index
 outside [0, S)), replaces gather_pallas.py table_take_cm, with take_cm its
 dispatcher. K11, the per-segment min and max of (B, K) values, replaces
 gather_pallas.py segment_min_max. K12, out[b, i] = rank_v[b, labels[b, i]]
@@ -21,6 +22,9 @@ value is copied.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from ros_vision_tpu_torch import _build
@@ -31,6 +35,29 @@ take_launches = _build.counter("table_take_cm")
 minmax_launches = _build.counter("segment_min_max")
 rank_gather_launches = _build.counter("rank_gather")
 _BIG = 2 ** 30             # segment_min_max's empty-segment min (-max)
+HIST_CLUSTER = 8           # blocks per row in csrc/histogram.cu
+HIST_THREADS = 1024
+HIST_MAX_BINS = 8192       # one shared-memory table of int32 bins
+
+
+@dataclasses.dataclass(frozen=True)
+class HistogramPlan:
+    """How csrc/histogram.cu runs (B, K) rows into S bins."""
+    cluster: int        # C, blocks per row (one cluster)
+    threads: int        # per block
+    bins_per_rank: int  # output bins each block sums and writes
+    smem_bytes: int     # the block's S-bin table
+
+
+def histogram_plan(num_values: int) -> HistogramPlan:
+    """One cluster of 8 blocks per row; block rank r merges bins
+    [r * ceil(S / 8), (r + 1) * ceil(S / 8))."""
+    if not 0 < num_values <= HIST_MAX_BINS:
+        raise ValueError(f"value_histogram takes 1 to {HIST_MAX_BINS} "
+                         f"bins, got {num_values}")
+    return HistogramPlan(cluster=HIST_CLUSTER, threads=HIST_THREADS,
+                         bins_per_rank=-(-num_values // HIST_CLUSTER),
+                         smem_bytes=4 * num_values)
 
 
 def value_histogram_plain(values: torch.Tensor,
@@ -51,9 +78,14 @@ def value_histogram_cuda(values: torch.Tensor,
     b, k = values.shape
     dev = values.device
     _build.check_tensor(values, "values", torch.int32, (b, k), dev)
+    plan = histogram_plan(num_values)
     out = torch.empty((b, num_values), dtype=torch.int32, device=dev)
-    _build.launch("rvt_value_histogram", dev, values, out, b, k, num_values)
+    made = ctypes.c_int(0)
+    _build.launch("rvt_value_histogram", dev, values, out,
+                  ctypes.addressof(made), b, k, num_values, plan.cluster,
+                  plan.threads, plan.bins_per_rank, plan.smem_bytes)
     launches.count += 1
+    launches.kernels += made.value
     return out
 
 

@@ -3,9 +3,10 @@ segment min/max (ros_vision_tpu_torch/ops/gather_kernel.py) with
 ops/gather_pallas value_histogram, table_take_cm and segment_min_max
 (interpret mode) and their references: bit-exact, values outside [0, S)
 not counted, indices outside [0, S) read 0, segment ids outside [0, S)
-dropped. K10 equals the interpret-mode kernel on finite tables and
-table_take_cm_ref everywhere: the TPU kernel's one-hot matmul turns -0.0
-into +0.0 and spreads a non-finite table entry over its 256-row chunk."""
+dropped; the K4 launch plan covers every bin once. K10 equals the
+interpret-mode kernel on finite tables and table_take_cm_ref everywhere:
+the TPU kernel's one-hot matmul turns -0.0 into +0.0 and spreads a
+non-finite table entry over its 256-row chunk."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,6 +59,37 @@ def test_histogram_of_a_noncontiguous_view():
     got = gk.histogram(wide[:, :4096], S)
     np.testing.assert_array_equal(n(gp.value_histogram_ref(
         jnp.asarray(v), S)), n(got))
+
+
+@pytest.mark.parametrize("s", [1, 7, 8, 1025, 8192])
+def test_histogram_plan(s):
+    """One cluster of at most 8 blocks per row; the ranks' bin slices
+    cover [0, S) once (each output bin written by exactly one block); the
+    table fits a block's static 48 KB of shared memory."""
+    plan = gk.histogram_plan(s)
+    assert 1 <= plan.cluster <= 8 and plan.threads <= 1024
+    slices = [range(r * plan.bins_per_rank,
+                    min(s, (r + 1) * plan.bins_per_rank))
+              for r in range(plan.cluster)]
+    assert sorted(i for sl in slices for i in sl) == list(range(s))
+    assert plan.smem_bytes == 4 * s <= 48 * 1024
+    if s == S:
+        assert plan.bins_per_rank == 129
+
+
+@pytest.mark.parametrize("s", [0, 8193])
+def test_histogram_plan_refuses_what_one_table_cannot_hold(s):
+    with pytest.raises(ValueError):
+        gk.histogram_plan(s)
+
+
+@pytest.mark.parametrize("k", [32768, 131072])
+def test_histogram_at_the_path_widths(k):
+    """The per-segment counts at the widths the detector runs K4 (1280x800
+    and 1920x1080), on sorted ids with a sentinel tail."""
+    v = _values("sorted_ids", 2, k)
+    want = gp.value_histogram_ref(jnp.asarray(v), S)
+    np.testing.assert_array_equal(n(want), n(gk.histogram(t(v), S)))
 
 
 def _table_case(b=2, s=S, c=4, k=2048, seed=5):

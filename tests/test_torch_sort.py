@@ -6,7 +6,11 @@ On the CPU the wrapper runs its plain version (stable torch.sorts from the
 last key to the first) and counts no launch. Where every operand is a key
 the comparison is exact; with a payload plane the keys compare exactly
 and the payload as a multiset within each run of equal keys (the bitonic
-network is not stable). The shapes are those of tests/test_sort_pallas.py.
+network is not stable). sort_network_plain, the network itself (the
+kernel's comparator on the card), equals the interpret-mode kernel bit for
+bit, payload order included. The shapes are those of
+tests/test_sort_pallas.py. The launch plan of csrc/sort.cu (sort_plan) is
+checked against the card's limits at the path's widths.
 """
 import dataclasses
 
@@ -28,11 +32,15 @@ from ros_vision_tpu_torch.ops import sort_kernel as sk
 from tests.torch_port_helpers import bench_frames, n, t
 
 KEY_INVALID = int(jqf.KEY_INVALID)
+SMEM_LIMIT = 232448    # 227 KB: the shared memory one H100 block may opt in to
 
 
 def _check(ops, num_keys, exact=True):
     want = [n(w) for w in jsort([jnp.asarray(o) for o in ops],
                                 num_keys=num_keys, interpret=True)]
+    net = sk.sort_network_plain([t(o) for o in ops], num_keys)
+    for w, g in zip(want, net, strict=True):
+        np.testing.assert_array_equal(w, n(g))
     before = sk.launches.count
     got = [n(g) for g in sk.sort_tpu([t(o) for o in ops], num_keys)]
     assert sk.launches.count == before            # CPU: plain version
@@ -125,6 +133,120 @@ def test_sort_checks_its_operands():
         sk.sort_tpu([a.to(dtype=t(np.zeros(1)).dtype)], num_keys=1)
     assert [sk.padded_length(k) for k in (1, 256, 257, 1000, 131072)] == \
         [256, 256, 512, 1024, 131072]
+
+
+def _network_case(kind: str, k: int):
+    """(operands, num_keys) after tests/test_sort_pallas.py, most with
+    payload planes (num_keys < len(operands))."""
+    rng = np.random.default_rng(k)
+    if kind == "random":
+        return [rng.integers(0, 1 << 22, (3, k)).astype(np.int32)
+                for _ in range(2)], 1
+    if kind == "three_planes":
+        return [rng.integers(0, 9, (2, k)).astype(np.int32),
+                rng.integers(0, 4, (2, k)).astype(np.int32),
+                rng.integers(-1000, 1000, (2, k)).astype(np.int32)], 2
+    if kind == "sentinel":
+        key = np.full((2, k), KEY_INVALID, np.int32)
+        pack = np.zeros((2, k), np.int32)
+        idx = rng.choice(k, 37, replace=False)
+        key[:, idx] = rng.integers(0, 1 << 22, 37)
+        pack[:, idx] = rng.integers(0, 1 << 28, 37)
+        return [key, pack], 1
+    if kind == "duplicate":
+        return [rng.integers(0, 7, (2, k)).astype(np.int32),
+                rng.integers(0, 5, (2, k)).astype(np.int32)], 1
+    # the theta-sort pattern (seg << 20 | theta, pack3)
+    seg = rng.integers(0, 257, (2, k)).astype(np.int32)
+    theta = rng.integers(0, 1 << 20, (2, k)).astype(np.int32)
+    return [(seg << 20) | theta,
+            rng.integers(0, 1 << 22, (2, k)).astype(np.int32)], 1
+
+
+@pytest.mark.parametrize("kind,k", [
+    ("random", 128), ("random", 1000), ("random", 2048),
+    ("three_planes", 512), ("three_planes", 1000),
+    ("sentinel", 4096), ("duplicate", 2048), ("theta", 16384),
+    ("three_planes", 16385), ("duplicate", 16385)])
+def test_network_plain_matches_pallas(kind, k):
+    """sort_network_plain equals the interpret-mode kernel bit for bit,
+    payload order included; K = 16,385 pads to 32,768, a row that the
+    card holds in a cluster of two blocks."""
+    ops, num_keys = _network_case(kind, k)
+    want = jsort([jnp.asarray(o) for o in ops], num_keys=num_keys,
+                 interpret=True)
+    got = sk.sort_network_plain([t(o) for o in ops], num_keys)
+    assert len(got) == len(ops)
+    for w, g in zip(want, got, strict=True):
+        assert n(g).dtype == np.int32 and n(g).shape == ops[0].shape
+        np.testing.assert_array_equal(n(w), n(g))
+
+
+def _path_pattern(kind: str, k: int):
+    """Every operand a key, as in each sort of cluster_and_fit."""
+    rng = np.random.default_rng(k + len(kind))
+    if kind == "duplicate":
+        return [rng.integers(0, 7, (2, k)).astype(np.int32),
+                rng.integers(0, 5, (2, k)).astype(np.int32)]
+    if kind == "sentinel":
+        key = np.full((2, k), KEY_INVALID, np.int32)
+        key[:, ::97] = rng.integers(0, 1 << 22, (2, len(range(0, k, 97))))
+        return [key, np.where(key == KEY_INVALID, 0, key & 0xFFF)
+                .astype(np.int32)]
+    # the peak sort: (segment, -errbits, pos) with a negative second key
+    errs = rng.exponential(5.0, (2, k)).astype(np.float32)
+    errs[:, ::7] = 0.0
+    return [rng.integers(0, 1025, (2, k)).astype(np.int32),
+            -errs.view(np.int32),
+            np.tile(np.arange(k, dtype=np.int32), (2, 1))]
+
+
+@pytest.mark.parametrize("kind", ["duplicate", "sentinel", "negative_key"])
+@pytest.mark.parametrize("k", [8192, 32768, 131072])
+def test_network_plain_equals_stable_sort_where_all_keys(kind, k):
+    """At the path's widths, on its patterns, the network equals the
+    stable sorts bit for bit when every operand is a key."""
+    ops = [t(o) for o in _path_pattern(kind, k)]
+    got = sk.sort_network_plain(ops, len(ops))
+    want = sk.sort_plain(ops, len(ops))
+    for w, g in zip(want, got, strict=True):
+        np.testing.assert_array_equal(n(w), n(g))
+    if kind == "negative_key":
+        assert (n(got[1]) < 0).any()
+
+
+@pytest.mark.parametrize("nops", [1, 2, 3])
+@pytest.mark.parametrize("k", [8192, 32768, 131072])
+def test_sort_plan_fits_one_launch(k, nops):
+    """At every width of the path a row is one thread-block cluster of at
+    most 8 blocks (the portable maximum), each within a block's 227 KB of
+    shared memory and 1024 threads, and the call is one launch."""
+    plan = sk.sort_plan(k, nops)
+    assert plan.n == k and plan.launches == 1
+    assert plan.tile * plan.cluster == plan.n
+    assert 1 <= plan.cluster <= 8
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.threads * sk.ELEMS == plan.tile and plan.threads <= 1024
+    assert plan.cluster == {8192: 1, 32768: 2, 131072: 8}[k]
+
+
+@pytest.mark.parametrize("k", [1, 256, 1000, 16384, 131072, 131073, 262144,
+                               1 << 20])
+def test_sort_plan_multi_launch_only_past_one_cluster(k):
+    """The device-memory launches start only above N = 131,072: one
+    cluster launch, then per stage above it its strides >= 131,072 and one
+    more cluster launch."""
+    plan = sk.sort_plan(k, 3)
+    big = 8 * sk.BLOCK_TILE
+    if plan.n <= big:
+        assert plan.launches == 1
+        assert plan.tile == min(plan.n, sk.BLOCK_TILE)
+    else:
+        launches, size = 1, 2 * big
+        while size <= plan.n:
+            launches += (size // big).bit_length() - 1 + 1
+            size *= 2
+        assert plan.cluster == 8 and plan.launches == launches > 1
 
 
 @pytest.fixture(scope="module")
