@@ -24,8 +24,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
      again at 1920x1080; K4 and K9 on the inputs that one
      use_pallas_sort cluster_and_fit call gives them on those batches:
      K4 on the segment ids and peak segments at (4, 32768) and
-     (4, 131072), one kernel launch a call, and its call time with and
-     without the launch path's cached lookups; K9 on the four sorts at
+     (4, 131072), one kernel launch a call; K9 on the four sorts at
      K = 8192, 32768 and 131072 plus random, duplicate, sentinel, K=1000,
      payload (num_keys < operands) and K=200000 rows, bit-exact against
      the network's plain version (payload order included), one kernel
@@ -270,7 +269,6 @@ def bound_ms(inputs, outputs, ops: float = 0.0):
 
 def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     import torch
-    from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.ops import ccl
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
@@ -447,21 +445,6 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
                ("1920x1080 B=4 K=131072 (segment ids)", seg2),
                ("1280x800 B=4 K=32768 (peak segments)", peak),
                ("1920x1080 B=4 K=131072 (peak segments)", peak2))])
-    # the wrapper's call time with the launch path's cached lookups and
-    # without them, in turns
-    fast = [call_ms(lambda: gk.histogram(seg, 1025))]
-    cached = _build.launch
-    _build.launch = launch_looked_up_per_call
-    try:
-        slow = [call_ms(lambda: gk.histogram(seg, 1025)) for _ in range(2)]
-    finally:
-        _build.launch = cached
-    fast.append(call_ms(lambda: gk.histogram(seg, 1025)))
-    results[-1]["call_ms_by_launch_path"] = dict(cached=fast,
-                                                 looked_up_per_call=slow)
-    print(f"  value_histogram call ms at (4, 32768), in turns: cached "
-          f"lookups {fast[0]:.4f}, per-call lookups {slow[0]:.4f} "
-          f"{slow[1]:.4f}, cached {fast[1]:.4f}")
 
     # K6 at 960x540: flat indices (the labels of label_components_flood),
     # the packed per-root table (its broadcast="flood"; INT32_MAX off the
@@ -661,15 +644,35 @@ def capture_calls(pts: dict, decim, k: int) -> dict:
 
 def library_sort(ops: list):
     """One stable torch.sort computing K9's function where every operand is
-    a key: of the plane itself, or of the int64 packing of two planes
-    (nonnegative keys, as cluster_and_fit's); None for three planes."""
+    a key: of the plane itself, or of one int64 packing of the planes, each
+    offset by its minimum into the bits its range needs (the operands of
+    cluster_and_fit's sorts need at most 60: at 131,072, 11 bits of
+    segment, 32 of -errbits and 17 of position for the peak sort); None
+    where they need more than 63. The packing is made here, outside the
+    timed call, and its sort is checked to order the planes as K9's plain
+    version does."""
     import torch
+    from ros_vision_tpu_torch.ops import sort_kernel as sk
     if len(ops) == 1:
         return lambda: torch.sort(ops[0], dim=1, stable=True)
-    if len(ops) == 2:
-        packed = (ops[0].to(torch.int64) << 32) | ops[1].to(torch.int64)
-        return lambda: torch.sort(packed, dim=1, stable=True)
-    return None
+    lows = [int(o.min().item()) for o in ops]
+    bits = [(int(o.max().item()) - lo).bit_length()
+            for o, lo in zip(ops, lows)]
+    if sum(bits) > 63:
+        return None
+
+    def pack(planes):
+        packed = torch.zeros(planes[0].shape, dtype=torch.int64,
+                             device=planes[0].device)
+        for p, lo, nb in zip(planes, lows, bits):
+            packed = (packed << nb) | (p.to(torch.int64) - lo)
+        return packed
+
+    packed = pack(ops)
+    check(torch.equal(torch.sort(packed, dim=1, stable=True)[0],
+                      pack(sk.sort_plain(ops, len(ops)))),
+          f"the int64 packing of {len(ops)} planes does not sort as K9")
+    return lambda: torch.sort(packed, dim=1, stable=True)
 
 
 def sort_err(ops: list, num_keys: int) -> float:
@@ -690,23 +693,6 @@ def sort_err(ops: list, num_keys: int) -> float:
         err = max(err, max_abs_err("sort_tpu vs stable sorts", got,
                                    sk.sort_plain(ops, num_keys)))
     return err
-
-
-def launch_looked_up_per_call(name: str, device, *args) -> None:
-    """_build.launch without its cached lookups: the library's lock, a
-    getattr of the launcher and a torch.cuda.Stream on every call (kept to
-    time the wrapper's call both ways)."""
-    import torch
-    from ros_vision_tpu_torch import _build
-    with _build.LIBRARY._lock:
-        lib = _build.LIBRARY.get()
-    conv = [None if a is None else a.data_ptr()
-            if isinstance(a, torch.Tensor) else int(a) for a in args]
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, name)(*conv, index, stream)
-    check(rc == 0, f"{name}: CUDA launch failed with error {rc}")
 
 
 def match_corners(dets, placed_list, tol: float, what: str) -> float:

@@ -25,10 +25,12 @@
 //   - a second cluster.sync() keeps every table alive until it is read.
 // Every output bin is written exactly once: no memset of the output and no
 // global atomics. Counts are integers, so the result is bit-exact in any
-// order. S is at most 8,192 (one 32 KB table).
+// order. The plan holds S at most 8,192 (one 32 KB table, within the 48 KB
+// a block has without opting in).
 //
-// The host-side plan (C, threads, bins per rank, shared bytes) comes from
-// ops/gather_kernel.py histogram_plan; rvt_value_histogram checks it.
+// The launch plan (C, threads, bins per rank, shared bytes) is
+// ops/gather_kernel.py histogram_plan's; rvt_value_histogram takes it as
+// given and checks only what the device and the kernel's layout require.
 #include <atomic>
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -38,14 +40,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;
-constexpr int kThreads = 1024;
+constexpr int kMaxCluster = 8;   // the portable cluster size limit
+constexpr int kMaxThreads = 1024;
+constexpr int kDefaultSmem = 48 * 1024;  // a block's shared memory, no opt-in
 constexpr int kItems = 4;  // values a thread loads before counting them
-constexpr int kMaxBins = 8192;
 constexpr int kMaxDevices = 64;
 constexpr int kClusterUnplaceable = -1;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     hist_cluster_kernel(const int* __restrict__ values, int* out, int k,
                         int s, int per_rank) {
   extern __shared__ int bins[];
@@ -86,20 +88,20 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
 }
 
-// Once per process and device: that the device can place the cluster.
-int prepare(int device, const cudaLaunchConfig_t& cfg) {
-  static std::atomic<int> placed[kMaxDevices];
+// Once per process, device and cluster size: that the device can place
+// such a cluster.
+int prepare(int device, const cudaLaunchConfig_t& cfg, int cluster) {
+  static std::atomic<int> placed[kMaxDevices][kMaxCluster + 1];
   if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (placed[device].load(std::memory_order_acquire)) return 0;
+  if (placed[device][cluster].load(std::memory_order_acquire)) return 0;
   cudaLaunchConfig_t one = cfg;
-  one.gridDim = dim3(kCluster, 1, 1);
-  one.dynamicSmemBytes = sizeof(int) * kMaxBins;
+  one.gridDim = dim3(cluster, 1, 1);
   int clusters = 0;
   const cudaError_t err =
       cudaOccupancyMaxActiveClusters(&clusters, hist_cluster_kernel, &one);
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return kClusterUnplaceable;
-  placed[device].store(1, std::memory_order_release);
+  placed[device][cluster].store(1, std::memory_order_release);
   return 0;
 }
 
@@ -117,23 +119,26 @@ extern "C" int rvt_value_histogram(const int* values, int* out,
   *launches = 0;
   cudaSetDevice(device);
   if (b == 0 || s == 0) return 0;
-  if (s < 0 || s > kMaxBins || k < 0 || cluster != kCluster ||
-      threads != kThreads || per_rank != (s + kCluster - 1) / kCluster ||
-      smem != (int)sizeof(int) * s)
+  // the layout: whole warps (__match_any_sync over all 32 lanes), every
+  // bin in one rank's slice, the S-bin table in shared memory
+  if (s < 0 || k < 0 || cluster < 1 || cluster > kMaxCluster ||
+      threads < 32 || threads % 32 != 0 || threads > kMaxThreads ||
+      per_rank < 1 || (long long)per_rank * cluster < s ||
+      smem < (int)sizeof(int) * s || smem > kDefaultSmem)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, b, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.gridDim = dim3(cluster, b, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.x = cluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const int err = prepare(device, cfg);
+  const int err = prepare(device, cfg, cluster);
   if (err != 0) return err;
   const cudaError_t rc = cudaLaunchKernelEx(&cfg, hist_cluster_kernel, values,
                                             out, k, s, per_rank);

@@ -42,9 +42,14 @@
 // cluster kernel runs every stride below 8 T of each larger stage: the same
 // network in 1 + sum_i (i + 1) launches for N = 2^i * 131,072.
 //
-// The host-side plan (N, T, C, threads, shared bytes) comes from
-// ops/sort_kernel.py sort_plan; rvt_sort checks it against the kernel's
-// constants.
+// The launch plan (N, T, C, threads, shared bytes) is ops/sort_kernel.py
+// sort_plan's; rvt_sort takes it as given and checks only what the device
+// and the kernel's layout require.
+//
+// Built with -DRVT_SORT_SKIP_LEVELS, the kernel skips the stride levels
+// whose bits are set in the device variable g_skip_levels: registers (1),
+// shuffles (2), shared memory (4), cluster (8). It then times a level kind
+// and does not sort; scripts/mb_torch_sort_levels.py builds it so.
 #include <atomic>
 #include <climits>
 #include <cstdint>
@@ -53,11 +58,18 @@
 
 namespace cg = cooperative_groups;
 
+#ifdef RVT_SORT_SKIP_LEVELS
+__device__ int g_skip_levels;
+#define SKIP_LEVEL(bit) (g_skip_levels & (bit))
+#else
+#define SKIP_LEVEL(bit) false
+#endif
+
 namespace {
 
 constexpr int kMaxOps = 3;
-constexpr int kBlockTile = 16384;  // T
-constexpr int kMaxCluster = 8;
+constexpr int kMaxCluster = 8;     // the portable cluster size limit
+constexpr int kMaxThreads = 1024;
 constexpr int kElems = 16;         // E, elements per thread per plane
 constexpr int kMaxDevices = 64;
 constexpr int kClusterUnplaceable = -1;
@@ -229,7 +241,7 @@ __device__ __forceinline__ void smem_to_regs(int (&v)[NOPS][E],
 // stages the row sits in registers; a stage with strides >= 32 E moves it
 // to shared memory for those strides and back.
 template <int NOPS, int NKEYS>
-__global__ void __launch_bounds__(kBlockTile / kElems, 1)
+__global__ void __launch_bounds__(kMaxThreads, 1)
     sort_cluster_kernel(CPlanes in, int ld_in, int lim_in, Planes out,
                         int ld_out, int lim_out, int tile, int size_lo,
                         int size_hi) {
@@ -277,7 +289,7 @@ __global__ void __launch_bounds__(kBlockTile / kElems, 1)
           int* hi_p = lower ? other : smem;
           const int g = (blockIdx.x & ~m) * tile;
           const int e0 = (lower ? 0 : tile / 2) + tid;
-          for (int c = 0; c < E / 2; c += kChunk) {
+          for (int c = 0; c < E / 2 && !SKIP_LEVEL(8); c += kChunk) {
             int* lo[kChunk];
             int* hi[kChunk];
             int g_lo[kChunk];
@@ -296,7 +308,7 @@ __global__ void __launch_bounds__(kBlockTile / kElems, 1)
         __syncthreads();
       }
       for (; s >= warp_span; s >>= 1) {
-        for (int c = 0; c < E / 2; c += kChunk) {
+        for (int c = 0; c < E / 2 && !SKIP_LEVEL(4); c += kChunk) {
           int* lo[kChunk];
           int* hi[kChunk];
           int g_lo[kChunk];
@@ -315,8 +327,9 @@ __global__ void __launch_bounds__(kBlockTile / kElems, 1)
       smem_to_regs<NOPS, E>(v, smem, ps, tid);
     }
     for (; s >= E; s >>= 1)
-      shfl_step<NOPS, NKEYS, E>(v, s / E, mask, lane, gbase, size);
-    reg_levels<NOPS, NKEYS, E, E / 2>(v, s, gbase, size);
+      if (!SKIP_LEVEL(2))
+        shfl_step<NOPS, NKEYS, E>(v, s / E, mask, lane, gbase, size);
+    if (!SKIP_LEVEL(1)) reg_levels<NOPS, NKEYS, E, E / 2>(v, s, gbase, size);
   }
 
   __syncthreads();
@@ -366,22 +379,28 @@ struct Launch {
   cudaStream_t stream;
 };
 
-// Once per process and device: the shared-memory opt-in; once per cluster
-// shape: that the device can place such a cluster at all.
+// Once per process and device: the shared-memory opt-in, at the device's
+// limit; once per tile and cluster size: that the device can place such a
+// cluster at all.
 template <int NOPS, int NKEYS>
 int prepare(int device, const Launch& l) {
-  static std::atomic<int> opted_in[kMaxDevices];
-  static std::atomic<int> placed[kMaxDevices][32];
+  static std::atomic<int> optin[kMaxDevices];  // the opt-in bytes, 0 before
+  static std::atomic<int> placed[kMaxDevices][64];
   if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   auto kernel = sort_cluster_kernel<NOPS, NKEYS>;
-  if (!opted_in[device].load(std::memory_order_acquire)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(int) * NOPS * plane_len(kBlockTile)));
+  int limit = optin[device].load(std::memory_order_acquire);
+  if (limit == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
     if (err != cudaSuccess) return (int)err;
-    opted_in[device].store(1, std::memory_order_release);
+    optin[device].store(limit, std::memory_order_release);
   }
-  const int key = __builtin_ctz((unsigned)(l.tile * l.cluster));
+  if (l.smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  const int key = __builtin_ctz((unsigned)l.tile) * 4 +
+                  __builtin_ctz((unsigned)l.cluster);
   if (!placed[device][key].load(std::memory_order_acquire)) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(l.cluster, 1, 1);
@@ -463,13 +482,15 @@ int sort_rows(const Launch& l, int device, const CPlanes& in,
   return 0;
 }
 
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
 }  // namespace
 
 // in*/out*: (B, K) planes (unused ones NULL); work*: (B, N) scratch planes,
-// needed only when N > 8 T. n is the padded row length N; tile, cluster,
-// threads and smem the plan of ops/sort_kernel.py sort_plan. *launches
-// receives the number of kernel launches made. Returns a cudaError_t, or
-// -1 when the device cannot place the cluster.
+// needed only when N > tile * cluster. n is the padded row length N; tile,
+// cluster, threads and smem the plan of ops/sort_kernel.py sort_plan.
+// *launches receives the number of kernel launches made. Returns a
+// cudaError_t, or -1 when the device cannot place the cluster.
 extern "C" int rvt_sort(const int* in0, const int* in1, const int* in2,
                         int* work0, int* work1, int* work2, int* out0,
                         int* out1, int* out2, int* launches, int b, int k,
@@ -479,13 +500,13 @@ extern "C" int rvt_sort(const int* in0, const int* in1, const int* in2,
   *launches = 0;
   cudaSetDevice(device);
   if (b == 0) return 0;
-  const int want_tile = n < kBlockTile ? n : kBlockTile;
-  const int want_cluster =
-      n / want_tile < kMaxCluster ? n / want_tile : kMaxCluster;
+  // the layout: E elements a thread, a stride >= tile only once a warp's
+  // span fits in the tile, the planes' padded tiles in shared memory
   if (nops < 1 || nops > kMaxOps || nkeys < 1 || nkeys > nops || n < k ||
-      (n & (n - 1)) != 0 || n < 256 || tile != want_tile ||
-      cluster != want_cluster || threads != tile / kElems ||
-      smem != (int)sizeof(int) * nops * plane_len(tile))
+      !pow2(n) || !pow2(tile) || !pow2(cluster) || cluster > kMaxCluster ||
+      tile * cluster > n || threads * kElems != tile ||
+      threads > kMaxThreads || (cluster > 1 && tile < 32 * kElems) ||
+      smem < (int)sizeof(int) * nops * plane_len(tile))
     return (int)cudaErrorInvalidValue;
   const CPlanes in = {{in0, in1, in2}};
   const Planes work = {{work0, work1, work2}};

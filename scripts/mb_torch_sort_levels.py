@@ -4,12 +4,14 @@ kind of stride level switched off, on one CUDA card.
 
     python3 scripts/mb_torch_sort_levels.py
 
-Builds a copy of csrc/sort.cu into build/mb_torch_sort_levels/ with one
-extra kernel argument, a mask that skips the register (1), warp-shuffle
-(2), shared-memory (4) or cluster (8) levels, plus a C harness that sorts
+Builds csrc/sort.cu as it stands, with -DRVT_SORT_SKIP_LEVELS (its
+device variable g_skip_levels then skips the register (1), warp-shuffle
+(2), shared-memory (4) or cluster (8) levels), into
+build/mb_torch_sort_levels/ together with a C harness that sorts
 (4, 131072) int32 rows of 1, 2 and 3 planes (every plane a key, random
-values below 2^22) and times 20 back-to-back launches between CUDA events
-after 3 warm-up launches. A level kind's cost is the full time less the
+values below 2^22) on ops/sort_kernel.py sort_plan's launch plan and
+times 20 back-to-back launches between CUDA events after 3 warm-up
+launches. A level kind's cost is the full time less the
 time without it; "load/store" is the time with every level skipped (the
 planes' HBM read and write, the moves between registers and shared memory
 and the barriers). The skipped runs give wrong orders: they time, they do
@@ -31,6 +33,7 @@ VARIANTS = {"full": 0, "no_register": 1, "no_shuffle": 2,
             "no_shared": 4, "no_cluster": 8, "none": 15}
 
 HARNESS = r"""
+#include "@SORT_CU@"
 #include <cstdio>
 #include <vector>
 int main() {
@@ -47,17 +50,17 @@ int main() {
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0);
   cudaEventCreate(&e1);
-  const int masks[] = {MASKS};
+  const int masks[] = {@MASKS@};
   int launches;
   for (int nops = 1; nops <= 3; ++nops) {
     printf("%d", nops);
     for (int mask : masks) {
-      g_skip = mask;
-      const int smem = 4 * nops * (16384 + 512);
+      cudaMemcpyToSymbol(g_skip_levels, &mask, sizeof(int));
+      const int smem = @SMEM_PER_PLANE@ * nops;
       auto run = [&]() {
         return rvt_sort(in[0], in[1], in[2], nullptr, nullptr, nullptr,
                         out[0], out[1], out[2], &launches, b, k, k, nops,
-                        nops, 16384, 8, 1024, smem, 0, 0);
+                        nops, @TILE@, @CLUSTER@, @THREADS@, smem, 0, 0);
       };
       for (int i = 0; i < 3; ++i)
         if (run() != 0) return 1;
@@ -78,33 +81,22 @@ int main() {
 """
 
 
-def patched_source() -> str:
-    """csrc/sort.cu with the skip mask threaded into sort_cluster_kernel;
-    raises if an anchor is gone (the source changed shape)."""
-    s = SRC.read_text()
-
-    def sub(old: str, new: str, count: int = 1) -> None:
-        nonlocal s
-        if s.count(old) != count:
-            raise RuntimeError(f"sort.cu changed: anchor {old!r} found "
-                               f"{s.count(old)} times, not {count}")
-        s = s.replace(old, new)
-
-    sub("namespace {\n", "int g_skip = 0;\nnamespace {\n")
-    sub("                        int size_hi) {\n",
-        "                        int size_hi, int skip) {\n")
-    sub("          for (int c = 0; c < E / 2; c += kChunk) {\n",
-        "          for (int c = 0; c < E / 2 && !(skip & 8); c += kChunk) {\n")
-    sub("        for (int c = 0; c < E / 2; c += kChunk) {\n",
-        "        for (int c = 0; c < E / 2 && !(skip & 4); c += kChunk) {\n")
-    sub("      shfl_step<NOPS, NKEYS, E>(",
-        "      if (!(skip & 2)) shfl_step<NOPS, NKEYS, E>(")
-    sub("    reg_levels<NOPS, NKEYS, E, E / 2>(",
-        "    if (!(skip & 1)) reg_levels<NOPS, NKEYS, E, E / 2>(")
-    sub("                                 size_lo, size_hi);",
-        "                                 size_lo, size_hi, g_skip);")
-    masks = ", ".join(str(m) for m in VARIANTS.values())
-    return s + HARNESS.replace("MASKS", masks)
+def harness_source() -> str:
+    """The harness, including csrc/sort.cu, on sort_plan's plan for
+    (4, 131072) rows (its shared bytes are per plane times the planes)."""
+    sys.path.insert(0, str(ROOT))
+    from ros_vision_tpu_torch.ops.sort_kernel import sort_plan
+    plan = sort_plan(131072, 1)
+    if plan.launches != 1:
+        raise RuntimeError(f"sort_plan(131072) is {plan}, not one launch")
+    fill = {"@SORT_CU@": str(SRC), "@SMEM_PER_PLANE@": str(plan.smem_bytes),
+            "@TILE@": str(plan.tile), "@CLUSTER@": str(plan.cluster),
+            "@THREADS@": str(plan.threads),
+            "@MASKS@": ", ".join(str(m) for m in VARIANTS.values())}
+    s = HARNESS
+    for key, value in fill.items():
+        s = s.replace(key, value)
+    return s
 
 
 def main() -> int:
@@ -115,10 +107,10 @@ def main() -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / "sort_levels.cu"
     exe = OUT / "sort_levels"
-    src.write_text(patched_source())
+    src.write_text(harness_source())
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-o", str(exe), str(src)],
-                   check=True)
+                    "-std=c++17", "-O3", "-DRVT_SORT_SKIP_LEVELS", "-o",
+                    str(exe), str(src)], check=True)
     run = subprocess.run([str(exe)], capture_output=True, text=True)
     if run.returncode != 0:
         print(f"mb_torch_sort_levels: harness failed\n{run.stdout}"

@@ -65,9 +65,11 @@ def test_histogram_of_a_noncontiguous_view():
 def test_histogram_plan(s):
     """One cluster of at most 8 blocks per row; the ranks' bin slices
     cover [0, S) once (each output bin written by exactly one block); the
-    table fits a block's static 48 KB of shared memory."""
+    table fits a block's static 48 KB of shared memory; whole warps, as
+    the kernel's __match_any_sync needs."""
     plan = gk.histogram_plan(s)
     assert 1 <= plan.cluster <= 8 and plan.threads <= 1024
+    assert plan.threads % 32 == 0
     slices = [range(r * plan.bins_per_rank,
                     min(s, (r + 1) * plan.bins_per_rank))
               for r in range(plan.cluster)]

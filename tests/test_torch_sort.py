@@ -220,13 +220,16 @@ def test_network_plain_equals_stable_sort_where_all_keys(kind, k):
 def test_sort_plan_fits_one_launch(k, nops):
     """At every width of the path a row is one thread-block cluster of at
     most 8 blocks (the portable maximum), each within a block's 227 KB of
-    shared memory and 1024 threads, and the call is one launch."""
+    shared memory and 1024 threads, a warp's span of E * 32 elements
+    within a block where the cluster has more than one, and the call is
+    one launch."""
     plan = sk.sort_plan(k, nops)
     assert plan.n == k and plan.launches == 1
     assert plan.tile * plan.cluster == plan.n
     assert 1 <= plan.cluster <= 8
     assert plan.smem_bytes <= SMEM_LIMIT
     assert plan.threads * sk.ELEMS == plan.tile and plan.threads <= 1024
+    assert plan.cluster == 1 or plan.tile >= 32 * sk.ELEMS
     assert plan.cluster == {8192: 1, 32768: 2, 131072: 8}[k]
 
 
