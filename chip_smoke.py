@@ -121,6 +121,58 @@ def clutter_frame(seed: int = 7, width: int = W,
     return (img + rng.normal(0, 2.0, img.shape)).clip(0, 255).astype(np.uint8)
 
 
+def staircase_plane(h: int, w: int, period: int = 32,
+                    seed: int = 0) -> np.ndarray:
+    """(1, h, w) threshold plane: 1-px white (255) diagonals of both slopes
+    every `period` px on black (0), 1% of pixels 127. The diagonals join
+    only through 8-way white links, cross the CCL tiles' corners, and cut
+    the black into 4-connected diamonds."""
+    yy, xx = np.mgrid[:h, :w]
+    white = ((xx + yy) % period == 0) | ((xx - yy) % period == 0)
+    out = np.where(white, 255, 0).astype(np.uint8)
+    out[np.random.default_rng(seed).random((h, w)) < 0.01] = 127
+    return out[None]
+
+
+def spiral_plane(h: int, w: int) -> np.ndarray:
+    """(1, h, w) threshold plane: one square spiral of 1-px white path,
+    rings 2 px apart, on black: one white and one black component, each
+    winding through every CCL tile."""
+    out = np.zeros((h, w), np.uint8)
+    y0, x0, y1, x1 = 0, 0, h - 1, w - 1
+    while y1 - y0 >= 4 and x1 - x0 >= 4:
+        out[y0, x0:x1 + 1] = 255
+        out[y0:y1 + 1, x1] = 255
+        out[y1, x0:x1 + 1] = 255
+        out[y0 + 2:y1 + 1, x0] = 255
+        out[y0 + 2, x0:x0 + 3] = 255          # step into the next ring
+        y0, x0, y1, x1 = y0 + 2, x0 + 2, y1 - 2, x1 - 2
+    return out[None]
+
+
+def comb_plane(h: int, w: int) -> np.ndarray:
+    """(1, h, w) threshold plane: white teeth on the odd columns joined by
+    a white bottom row, black teeth on the even columns joined by a black
+    top row: two components that cross every tile border many times."""
+    out = np.zeros((h, w), np.uint8)
+    out[:, 1::2] = 255
+    out[0] = 0
+    out[-1] = 255
+    return out[None]
+
+
+def ragged_planes(b: int, h: int, w: int, seed: int = 11) -> np.ndarray:
+    """(b, h, w) threshold planes of smooth random blobs of 0 and 255 with
+    10% 127, for shapes that are no multiple of the CCL tile."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.random((b, h // 4 + 1, w // 4 + 1))
+    field = np.kron(coarse, np.ones((4, 4)))[:, :h, :w]
+    field = field + 0.15 * rng.random((b, h, w))
+    out = np.where(field > 0.55, 255, 0).astype(np.uint8)
+    out[rng.random((b, h, w)) < 0.1] = 127
+    return out
+
+
 def check_kernel_set(what: str, counts: dict, must: set) -> None:
     """Every kernel of `must` launched, every other kernel not."""
     check(all(counts[k] > 0 for k in must)

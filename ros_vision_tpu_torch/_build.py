@@ -80,8 +80,8 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags: tuple = NVCC_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -89,16 +89,18 @@ def library_path() -> Path:
 
 
 class KernelLibrary:
-    """The built, loaded kernel library (one per process)."""
+    """The built, loaded kernel library (one per process), compiled with
+    `flags` (a measuring script may build a variant with extra defines)."""
 
-    def __init__(self):
+    def __init__(self, flags: tuple = NVCC_FLAGS):
+        self.flags = tuple(flags)
         self._lib = None
         self._lock = threading.Lock()
         self.build_seconds: float | None = None   # None until built here
         self.build_log = ""
 
     def build(self) -> Path:
-        out = library_path()
+        out = library_path(self.flags)
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -106,7 +108,7 @@ class KernelLibrary:
         cus = [p for p in _sources() if p.suffix == ".cu"]
         objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
         t0 = time.monotonic()
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+        procs = [subprocess.Popen([_nvcc(), *self.flags, "-c", "-o", str(o),
                                    str(p)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for p, o in zip(cus, objs)]

@@ -144,3 +144,5 @@ extern "C" int rvt_rank_image(const uint8_t* thr, int* labels,
 #undef RVT_CHECK
   return 0;
 }
+
+RVT_HOPS_EXPORT(rvt_rank_image_hops)

@@ -196,3 +196,5 @@ extern "C" int rvt_propagate(const uint8_t* thr, const int* labels,
   }
   return 0;
 }
+
+RVT_HOPS_EXPORT(rvt_propagate_fixpoint_hops)

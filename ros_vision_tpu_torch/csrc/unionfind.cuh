@@ -17,20 +17,51 @@
 namespace rvt {
 namespace {   // internal linkage: included by several .cu files
 
+// Counting build (-DRVT_CCL_COUNT_HOPS, off by default; see
+// scripts/mb_torch_ccl_phases.py): for each phase of kHopPhaseNames, the
+// hops (parent steps) of every find summed, the finds, and the most hops
+// of one find. RVT_HOPS_EXPORT(name) defines extern "C" name(out), which
+// copies the counts to the host's out[kHopPhases * 3] and zeroes them.
+constexpr int kHopPhases = 2;
+#define RVT_HOP_PHASE_NAMES "merge,compress"
+#ifdef RVT_CCL_COUNT_HOPS
+__device__ unsigned long long g_hops[kHopPhases][3];
+__device__ __forceinline__ void count_hops(int phase, unsigned hops) {
+  atomicAdd(&g_hops[phase][0], (unsigned long long)hops);
+  atomicAdd(&g_hops[phase][1], 1ull);
+  atomicMax(&g_hops[phase][2], (unsigned long long)hops);
+}
+#define RVT_HOPS_EXPORT(name)                                              \
+  extern "C" const char* name##_phases() { return RVT_HOP_PHASE_NAMES; } \
+  extern "C" int name(unsigned long long* out) {                           \
+    static const unsigned long long zero[rvt::kHopPhases * 3] = {};        \
+    cudaError_t e = cudaMemcpyFromSymbol(out, rvt::g_hops, sizeof(zero));  \
+    if (e != cudaSuccess) return (int)e;                                   \
+    return (int)cudaMemcpyToSymbol(rvt::g_hops, zero, sizeof(zero));       \
+  }
+#else
+__device__ __forceinline__ void count_hops(int, unsigned) {}
+#define RVT_HOPS_EXPORT(name)
+#endif
+
+template <int kPhase>
 __device__ __forceinline__ int uf_find(const int* L, int x) {
+  unsigned hops = 0;
   int p = __ldcg(L + x);
   while (p != x) {
     x = p;
     p = __ldcg(L + x);
+    ++hops;
   }
+  count_hops(kPhase, hops);
   return x;
 }
 
 __device__ void uf_union(int* L, int a, int b) {
   bool done;
   do {
-    a = uf_find(L, a);
-    b = uf_find(L, b);
+    a = uf_find<0>(L, a);
+    b = uf_find<0>(L, b);
     if (a < b) {
       const int old = atomicMin(L + b, a);
       done = (old == b);
@@ -76,7 +107,7 @@ __global__ void compress_kernel(int* labels, int n, int total) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   int* L = labels + (size_t)(i / n) * n;
-  L[i % n] = uf_find(L, i % n);
+  L[i % n] = uf_find<1>(L, i % n);
 }
 
 // The three launches above, in order, on `stream`: labels (B, h*w) of the
