@@ -181,6 +181,21 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
           f"{counts}")
 
 
+def check_device_launches(what: str, counts: dict) -> None:
+    """The device launches that the C launchers of K2, K4 and K6 reported
+    over a path's run: their fixed number per call times the calls."""
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.ops import ccl_kernel as ck
+    from ros_vision_tpu_torch.ops import frontend_kernel as fk
+    kernels = _build.kernel_counts()
+    for name, per_call in (("rank_image", fk.RANK_LAUNCHES),
+                           ("propagate_fixpoint", ck.FIXPOINT_LAUNCHES),
+                           ("value_histogram", 1)):
+        check(kernels[name] == per_call * counts[name],
+              f"{what}: {name} made {kernels[name]} device launches in "
+              f"{counts[name]} calls, not {per_call} each")
+
+
 def call_ms(fn, reps: int = REPS) -> float:
     """Median over `reps` single calls of fn(), each between its own pair
     of CUDA events: what the eager main path pays per call, the host's
@@ -403,9 +418,42 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     d2, t2 = tk.adaptive_threshold_plain(g2)
     _, tc2 = tk.adaptive_threshold_plain(gc2)
 
+    # the union-find kernels (K2, K6) also on planes made to break a tiled
+    # labelling: 255 diagonals through the tiles' corners, a spiral and a
+    # comb whose components cross every tile, at both path widths, and
+    # ragged frames (no multiple of the tile)
+    adversarial = {
+        f"{name} {w}x{h}": torch.from_numpy(make(h, w)).to(dev)
+        for h, w in ((H // 2, W // 2), (H2 // 2, W2 // 2))
+        for name, make in (("staircase", staircase_plane),
+                           ("spiral", spiral_plane), ("comb", comb_plane))}
+    adversarial["ragged 963x541 B=2"] = torch.from_numpy(
+        ragged_planes(2, 541, 963)).to(dev)
+    adversarial["ragged 53x37 B=3"] = torch.from_numpy(
+        ragged_planes(3, 37, 53)).to(dev)
+
+    def device_launches(counter, call, want: int, what: str):
+        """call(), checking that its C launcher made `want` device
+        launches."""
+        before = counter.kernels
+        out = call()
+        made = counter.kernels - before
+        check(made == want, f"{what}: {made} device launches in one call, "
+              f"not {want}")
+        return out
+
     # K2 (labels, sizes and ranks; the clutter frame overflows the ranks)
-    err = max(max_abs_err("rank_image", fk.label_components(t),
-                          fk.label_components_plain(t)) for t in (t4, tc))
+    err = 0.0
+    for what, t in [("bench 640x400 B=4", t4), ("clutter 640x400", tc),
+                    *adversarial.items()]:
+        got = device_launches(fk.rank_launches,
+                              lambda: fk.label_components(t),
+                              fk.RANK_LAUNCHES, f"rank_image on {what}")
+        err = max(err, max_abs_err(f"rank_image on {what}", got,
+                                   fk.label_components_plain(t)))
+    print(f"  rank_image: bit-exact on the bench, clutter and "
+          f"{len(adversarial)} adversarial planes, {fk.RANK_LAUNCHES} "
+          "device launches a call")
     nblobs = int(fk.label_components_plain(tc)[2].max().item())
     print(f"  clutter frame: max rank {nblobs} (rank space 2048)")
     record("rank_image", "ccl.cu",
@@ -500,17 +548,33 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
 
     # K6 at 960x540: flat indices (the labels of label_components_flood),
     # the packed per-root table (its broadcast="flood"; INT32_MAX off the
-    # roots), and the clutter frame
+    # roots), the clutter frame, and the adversarial planes with flat
+    # indices and with random values (INT32_MAX and 2^30 among them)
     n2 = t2.shape[1] * t2.shape[2]
     init2, initc2 = flat_init(t2), flat_init(tc2)
     lab2 = ccl.propagate_fixpoint(t2, init2).view(4, n2)
     labc2 = ccl.propagate_fixpoint(tc2, initc2).view(1, n2)
     counts2 = ccl.label_histogram(lab2)
     packed2 = ccl.packed_root_table(counts2, 25).view(t2.shape)
-    err = max(max_abs_err("propagate_fixpoint",
-                          (ck.propagate_fixpoint(t, v),),
-                          (ccl.propagate_fixpoint(t, v),))
-              for t, v in ((t2, init2), (t2, packed2), (tc2, initc2)))
+    cases = [("bench 960x540 B=4, flat indices", t2, init2),
+             ("bench 960x540 B=4, packed root table", t2, packed2),
+             ("clutter 960x540, flat indices", tc2, initc2)]
+    for what, t in adversarial.items():
+        vals = rng.integers(0, 2 ** 31 - 1, t.shape, dtype=np.int64)
+        vals.reshape(-1)[:2] = [2 ** 31 - 1, 2 ** 30]
+        cases += [(f"{what}, flat indices", t, flat_init(t)),
+                  (f"{what}, random values", t,
+                   torch.from_numpy(vals.astype(np.int32)).to(dev))]
+    err = 0.0
+    for what, t, v in cases:
+        got = device_launches(ck.fixpoint_launches,
+                              lambda: ck.propagate_fixpoint(t, v),
+                              ck.FIXPOINT_LAUNCHES,
+                              f"propagate_fixpoint on {what}")
+        err = max(err, max_abs_err(f"propagate_fixpoint on {what}", (got,),
+                                   (ccl.propagate_fixpoint(t, v),)))
+    print(f"  propagate_fixpoint: bit-exact on {len(cases)} plane and value "
+          f"sets, {ck.FIXPOINT_LAUNCHES} device launches a call")
     record("propagate_fixpoint", "flood.cu",
            "ros_vision_tpu/ops/ccl_pallas.py:312", err,
            lambda: ck.propagate_fixpoint(t2, init2),
@@ -808,10 +872,7 @@ def detector_phase(dev, bench4, placed, must: set):
     counts = _build.counts()
     print(f"  launches in the detector phase: {counts}")
     check_kernel_set(f"detector {width}x{height}", counts, must)
-    kernels = _build.kernel_counts()["value_histogram"]
-    check(kernels == counts["value_histogram"],
-          f"value_histogram: {kernels} kernel launches for "
-          f"{counts['value_histogram']} calls, not one each")
+    check_device_launches(f"detector {width}x{height}", counts)
     return out, counts
 
 
@@ -845,9 +906,10 @@ def pallas_sort_phase(dev, bench4, must: set):
     check(counts["sort_tpu"] == 4 and kernels["sort_tpu"] == 4,
           f"sort_tpu: {counts['sort_tpu']} calls and {kernels['sort_tpu']} "
           "kernel launches, not 4 of each")
-    check(kernels["value_histogram"] == counts["value_histogram"] == 2,
-          f"value_histogram: {counts['value_histogram']} calls and "
-          f"{kernels['value_histogram']} kernel launches, not 2 of each")
+    check(counts["value_histogram"] == 2,
+          f"value_histogram: {counts['value_histogram']} calls, not 2")
+    check_device_launches(f"use_pallas_sort detector {width}x{height}",
+                          counts)
     max_abs_err("use_pallas_sort packed output", (got,), (want,))
     for i, dets in enumerate(det_ps.unpack(got)):
         ids = [d.tag_id for d in dets]
@@ -904,6 +966,7 @@ def ccl_paths_phase(t4, t2):
         counts = _build.counts()
         max_abs_err(name, got, plain())
         check_kernel_set(name, counts, must)
+        check_device_launches(name, counts)
         print(f"  {name}: bit-exact vs the plain CCL; {ms:.3f} ms (one "
               f"call, host clock incl. sync), {syncs.count} host syncs; "
               f"launches {counts}")
@@ -1004,6 +1067,7 @@ def system_phase(dev, min_batches: int = 20):
     check(batches >= min_batches, f"only {batches} batches spun")
     print(f"  launches in the system phase: {counts}")
     check_kernel_set("system run", counts, PATH_800)
+    check_device_launches("system run", counts)
     lat = []
     for ident, loc in zip(scenes_ids, locs):
         vals = senders[loc].values

@@ -39,16 +39,18 @@ _SIGNATURES = {
     # gray, decim, threshim, tmin, tmax, b, h, w, min_white_black_diff
     "rvt_adaptive_threshold": [_P] * 5 + [_I] * 4,
     # threshim, labels, size_root, rank_root, block_counts, ranks, sizes,
-    # b, h, w, min_blob, max_blobs
-    "rvt_rank_image": [_P] * 7 + [_I] * 5,
+    # launches, b, h, w, min_blob, max_blobs, tile_h, tile_w, tiles_x,
+    # tiles_y, threads, border_threads, smem
+    "rvt_rank_image": [_P] * 8 + [_I] * 12,
     # threshim, ranks, maskbits, pm, blk_a, blk_b, key, pack2, counts,
     # b, h, w, p_cap, k_cap
     "rvt_boundary_compact": [_P] * 9 + [_I] * 5,
     # values, out, launches, b, k, num_values, cluster, threads, per_rank,
     # smem
     "rvt_value_histogram": [_P] * 3 + [_I] * 7,
-    # threshim, values, labels, rootmin, out, b, h, w
-    "rvt_propagate_fixpoint": [_P] * 5 + [_I] * 3,
+    # threshim, values, labels, rootmin, out, launches, b, h, w, tile_h,
+    # tile_w, tiles_x, tiles_y, threads, border_threads, smem
+    "rvt_propagate_fixpoint": [_P] * 6 + [_I] * 10,
     # labels, counts, b, n
     "rvt_label_histogram": [_P] * 2 + [_I] * 2,
     # threshim, labels, mask, scratch, out, b, h, w, n_sweeps
@@ -156,7 +158,7 @@ class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
     else, so a run can show that the main path went through the kernel.
     `kernels` sums the device kernel launches that C launchers which
-    report them (K4, K9) made for those calls."""
+    report them (K2, K4, K6, K9) made for those calls."""
 
     def __init__(self, name: str):
         self.name = name

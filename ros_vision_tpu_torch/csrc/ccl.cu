@@ -9,22 +9,24 @@
 // component; ranks run 1..max_blobs over components of >= min_blob
 // pixels in root order, 0 elsewhere.
 //
-// Bound on the H100: latency of dependent memory accesses, not bandwidth.
-// The TPU kernel min-floods labels to fixpoint (~200-300 full-frame sweeps
-// on a noisy 400x640 frame) because the TPU has no fast atomics. Here the
-// union-find of the reference (labeling_allegretti_2019_BKE.cu) replaces
-// the flood (unionfind.cuh, shared with flood.cu): init, then one merge
-// launch in which every pixel unions itself with its
-// already-visited neighbours (left, up, and for white up-left / up-right)
-// by an atomicMin loop that always links the larger root under the
-// smaller, so every root is its component's minimum flat index; one
-// path-compression launch; sizes by atomicAdd at the root (warp-aggregated
-// with __match_any_sync, because the background component takes a large
-// share of the frame and would serialise a single address); ranks by a
-// hand-written exclusive scan of is_big_root in flat order (per-block
-// counts, one block per row scanning them, then the write); one broadcast
-// launch rank[p] = rank_at_root[label[p]]. Eight launches per call, each a
-// single pass over the (B, H*W) planes.
+// Bound on the H100: latency of dependent memory accesses and atomics on
+// shared roots, not bandwidth (the bytes are ~1.5 us at B=4 640x400). The
+// TPU kernel min-floods labels to fixpoint (~200-300 full-frame sweeps on
+// a noisy 400x640 frame) because the TPU has no fast atomics. Here the
+// labels and the sizes come from the two-level union-find of
+// unionfind.cuh (tiles in shared memory, global atomics only at tile
+// borders; 3 launches, the sizes accumulated per tile and added once per
+// tile and component), then the ranks by a hand-written exclusive scan of
+// is_big_root in flat order: one launch counts per block of 1,024 pixels
+// and its last block to finish scans the row's counts, one writes
+// rank_at_root, one broadcasts rank[p] = rank_at_root[label[p]]. Six
+// launches per call.
+//
+// Measured (scripts/mb_torch_ccl_phases.py, NVIDIA H100 80GB HBM3,
+// 700.00 W, B=4 640x400 bench planes): the one-level union-find of the
+// earlier design took 0.412 ms in 9 device operations, 0.351 of it in its
+// merge launch (4.2 finds and 14.2 hops a pixel, up to 131 hops in one
+// find).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,27 +35,19 @@
 
 namespace {
 
-// size_root[b, label] += 1 per pixel; lanes of a warp that share a label
-// add once through their leader.
-__global__ void size_kernel(const int* __restrict__ labels, int* size_root,
-                            int n, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < total;
-  const int key = active ? (i / n) * n + labels[i] : -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  if (active && (threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(size_root + key, __popc(peers));
-}
-
 __device__ __forceinline__ int big_root(const int* L, const int* S, int p,
                                         int n, int min_blob) {
   return (p < n && L[p] == p && S[p] >= min_blob) ? 1 : 0;
 }
 
+// block_counts[b, blk] = the big roots in pixels [1024 blk, 1024 blk +
+// 1024); the row's last block to finish (done[b] counts them, zeroed by
+// phase A) turns the row into its exclusive prefix.
 __global__ void rank_count_kernel(const int* __restrict__ labels,
                                   const int* __restrict__ size_root,
-                                  int* block_counts, int n, int nblk,
-                                  int min_blob) {
+                                  int* block_counts, int* done, int n,
+                                  int nblk, int min_blob) {
+  __shared__ bool last;
   const int b = blockIdx.y;
   const int* L = labels + (size_t)b * n;
   const int* S = size_root + (size_t)b * n;
@@ -63,8 +57,16 @@ __global__ void rank_count_kernel(const int* __restrict__ labels,
     c += big_root(L, S, p0 + j, n, min_blob);
   int tot;
   rvt::block_exclusive_scan(c, &tot);
-  if (threadIdx.x == 0)
-    block_counts[(size_t)b * (nblk + 1) + blockIdx.x] = tot;
+  int* row = block_counts + (size_t)b * (nblk + 1);
+  if (threadIdx.x == 0) {
+    row[blockIdx.x] = tot;
+    __threadfence();
+    last = atomicAdd(done + b, 1) == nblk - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  rvt::scan_row(row, nblk);
 }
 
 __global__ void rank_write_kernel(const int* __restrict__ labels,
@@ -106,40 +108,47 @@ __global__ void broadcast_kernel(const int* __restrict__ labels,
 
 }  // namespace
 
+// threshim (B, h, w) -> labels, size_root, rank_root, ranks and (unless
+// null) sizes, each (B, h*w). block_counts holds B * (nblk + 1) + B ints,
+// nblk = ceil(h*w / 1024): the rows of block counts, then one counter per
+// frame. tile_h .. smem are ops/ccl_kernel.py ccl_plan's. *launches gets
+// the launches made. Returns a cudaError_t.
 extern "C" int rvt_rank_image(const uint8_t* thr, int* labels,
                               int* size_root, int* rank_root,
                               int* block_counts, int* ranks, int* sizes,
-                              int b, int h, int w, int min_blob,
-                              int max_blobs, int device,
-                              cudaStream_t stream) {
+                              int* launches, int b, int h, int w,
+                              int min_blob, int max_blobs, int tile_h,
+                              int tile_w, int tiles_x, int tiles_y,
+                              int threads, int border_threads, int smem,
+                              int device, cudaStream_t stream) {
+  *launches = 0;
   cudaSetDevice(device);
+  const rvt::TilePlan plan{tile_h, tile_w, tiles_x, tiles_y, threads,
+                           border_threads, smem};
+  if (!rvt::plan_ok(plan, b, h, w)) return (int)cudaErrorInvalidValue;
   const int n = h * w;
   const int total = b * n;
   const int t1 = 256;
-  const int g1 = (total + t1 - 1) / t1;
   const int nblk = (n + rvt::kScanTile - 1) / rvt::kScanTile;
-  cudaError_t err;
+  int* done = block_counts + (size_t)b * (nblk + 1);
+  cudaError_t err = rvt::label_tiles<false>(thr, nullptr, labels, size_root,
+                                            done, b, h, w, plan, launches,
+                                            stream);
+  if (err != cudaSuccess) return (int)err;
 #define RVT_CHECK()                                   \
   err = cudaGetLastError();                           \
-  if (err != cudaSuccess) return (int)err
+  if (err != cudaSuccess) return (int)err;            \
+  ++*launches
 
-  err = rvt::label_pixels(thr, labels, b, h, w, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(size_root, 0, sizeof(int) * (size_t)total, stream);
-  if (err != cudaSuccess) return (int)err;
-  size_kernel<<<g1, t1, 0, stream>>>(labels, size_root, n, total);
-  RVT_CHECK();
   rank_count_kernel<<<dim3(nblk, b), rvt::kScanThreads, 0, stream>>>(
-      labels, size_root, block_counts, n, nblk, min_blob);
-  RVT_CHECK();
-  rvt::scan_rows_kernel<<<b, 1024, 0, stream>>>(block_counts, nblk);
+      labels, size_root, block_counts, done, n, nblk, min_blob);
   RVT_CHECK();
   rank_write_kernel<<<dim3(nblk, b), rvt::kScanThreads, 0, stream>>>(
       labels, size_root, block_counts, rank_root, n, nblk, min_blob,
       max_blobs);
   RVT_CHECK();
-  broadcast_kernel<<<g1, t1, 0, stream>>>(labels, rank_root, size_root,
-                                          ranks, sizes, n, total);
+  broadcast_kernel<<<(total + t1 - 1) / t1, t1, 0, stream>>>(
+      labels, rank_root, size_root, ranks, sizes, n, total);
   RVT_CHECK();
 #undef RVT_CHECK
   return 0;

@@ -10,15 +10,22 @@
 // neighbour offers _BIG = 2^30, and every component has a pixel with one.
 // The TPU floods (~287 sweeps on a noisy 400x640 frame, ccl.py:248-250)
 // because it has no atomics. Bound on the H100: latency of the
-// union-find's dependent reads, then two passes over (B, H*W) int32.
-// Design: labels from the
-// union-find of unionfind.cuh, then atomicMin of each pixel's value into
-// an INT32_MAX-filled per-root table (lanes of a warp that share a root
-// reduce with __reduce_min_sync first and add once through their leader,
-// because the background component would serialise one address), then
+// union-find's dependent reads and atomics on shared roots (the bytes are
+// ~6 us at B=4 960x540). Design: the two-level union-find of unionfind.cuh
+// (tiles in shared memory, global atomics only at tile borders; 3
+// launches) labels the pixels and takes the per-root minimum of `values`
+// in its finalize launch (per tile and slot in shared memory, lanes of a
+// warp that share a slot reduced with __reduce_min_sync first, then one
+// global atomicMin per tile and component, into a table the first launch
+// set to INT32_MAX at the tile-local roots); a fourth launch broadcasts
 // out[p] = min(rootmin[label[p]], 2^30). Integer min is order-free, so
 // the result is exact. Neither INT32_MAX (which label_components_flood
 // floods for non-roots) nor 2^30 is a sentinel here: both are values.
+// Measured (scripts/mb_torch_ccl_phases.py, NVIDIA H100 80GB HBM3,
+// 700.00 W, B=4 960x540 bench planes): the one-level union-find of the
+// earlier design took 0.477 ms in 6 launches, 0.391 of it in its merge
+// launch (1.6 finds and 8.4 hops a pixel, up to 184 hops in one find)
+// and 0.044 in its warp-aggregated atomicMin launch.
 //
 // K7 replaces ccl_pallas.py label_histogram (pallas_call at :376, kernel
 // body _make_hist_kernel:339): counts[b, v] = #(labels[b] == v) for v in
@@ -52,25 +59,6 @@ constexpr int kThreads = 256;
 // (dy, dx) of ccl_pallas._OFFSETS; directions 4..7 are diagonal
 __constant__ int kDy[8] = {0, 0, -1, 1, -1, -1, 1, 1};
 __constant__ int kDx[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
-
-__global__ void fill_kernel(int* x, int v, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) x[i] = v;
-}
-
-// rootmin[b, label] = min of values over the pixels with that label
-__global__ void root_min_kernel(const int* __restrict__ labels,
-                                const int* __restrict__ values, int* rootmin,
-                                int n, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < total;
-  const int key = active ? (i / n) * n + labels[i] : -1;
-  const int v = active ? values[i] : INT_MAX;
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  const int m = __reduce_min_sync(peers, v);
-  if (active && (threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicMin(rootmin + key, m);
-}
 
 __global__ void root_broadcast_kernel(const int* __restrict__ labels,
                                       const int* __restrict__ rootmin,
@@ -134,26 +122,32 @@ __global__ void sweep_kernel(const uint8_t* __restrict__ mask,
 
 }  // namespace
 
+// threshim (B, h, w), values (B, h, w) -> out (B, h, w); labels and
+// rootmin (B, h*w) are scratch. tile_h .. smem are ops/ccl_kernel.py
+// ccl_plan's. *launches gets the launches made. Returns a cudaError_t.
 extern "C" int rvt_propagate_fixpoint(const uint8_t* thr, const int* values,
                                       int* labels, int* rootmin, int* out,
-                                      int b, int h, int w, int device,
-                                      cudaStream_t stream) {
+                                      int* launches, int b, int h, int w,
+                                      int tile_h, int tile_w, int tiles_x,
+                                      int tiles_y, int threads,
+                                      int border_threads, int smem,
+                                      int device, cudaStream_t stream) {
+  *launches = 0;
   cudaSetDevice(device);
+  const rvt::TilePlan plan{tile_h, tile_w, tiles_x, tiles_y, threads,
+                           border_threads, smem};
+  if (!rvt::plan_ok(plan, b, h, w)) return (int)cudaErrorInvalidValue;
   const int n = h * w;
   const int total = b * n;
-  const int g = (total + kThreads - 1) / kThreads;
-  cudaError_t err = rvt::label_pixels(thr, labels, b, h, w, stream);
+  cudaError_t err = rvt::label_tiles<true>(thr, values, labels, rootmin,
+                                           nullptr, b, h, w, plan, launches,
+                                           stream);
   if (err != cudaSuccess) return (int)err;
-  fill_kernel<<<g, kThreads, 0, stream>>>(rootmin, INT_MAX, total);
+  root_broadcast_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>(labels, rootmin, out, n, total);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  root_min_kernel<<<g, kThreads, 0, stream>>>(labels, values, rootmin, n,
-                                              total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  root_broadcast_kernel<<<g, kThreads, 0, stream>>>(labels, rootmin, out, n,
-                                                    total);
-  return (int)cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return (int)err;
 }
 
 extern "C" int rvt_label_histogram(const int* labels, int* counts, int b,

@@ -42,20 +42,26 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   return res;
 }
 
-// One block per batch row: counts[b, 0..nblk) (row stride nblk + 1) become
-// their exclusive prefix, and counts[b, nblk] the row total.
-__global__ void scan_rows_kernel(int* counts, int nblk) {
-  int* c = counts + (size_t)blockIdx.x * (nblk + 1);
+// counts c[0..nblk) become their exclusive prefix, and c[nblk] the total.
+// Every thread of the block must call it. Reads go through L2: other
+// blocks of the same launch may have written the counts.
+__device__ void scan_row(int* c, int nblk) {
   int carry = 0;
   for (int base = 0; base < nblk; base += blockDim.x) {
     const int i = base + threadIdx.x;
-    const int v = i < nblk ? c[i] : 0;
+    const int v = i < nblk ? __ldcg(c + i) : 0;
     int tot;
     const int ex = block_exclusive_scan(v, &tot);
     if (i < nblk) c[i] = carry + ex;
     carry += tot;
   }
   if (threadIdx.x == 0) c[nblk] = carry;
+}
+
+// One block per batch row: counts[b, 0..nblk) (row stride nblk + 1) become
+// their exclusive prefix, and counts[b, nblk] the row total.
+__global__ void scan_rows_kernel(int* counts, int nblk) {
+  scan_row(counts + (size_t)blockIdx.x * (nblk + 1), nblk);
 }
 
 }  // namespace

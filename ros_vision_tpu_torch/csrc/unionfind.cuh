@@ -1,29 +1,79 @@
 // Union-find labelling of a {0, 127, 255} threshold image, shared by
 // ccl.cu (K2) and flood.cu (K6). Contract of ros_vision_tpu/ops/ccl.py
 // label_components: 4-way connectivity for 0, 8-way for 255 (diagonals
-// join only 255 pixels), 127 pixels are singletons. After init, merge and
-// compress, labels[b, p] is the minimum flat pixel index of p's component.
+// join only 255 pixels), 127 pixels are singletons. After the three phases
+// below, labels[b, p] is the minimum flat pixel index of p's component and
+// table[b, root] holds each root's accumulation (K2: its size; K6: the
+// minimum of `values` over the component).
 //
-// merge: every pixel unions itself with its already-visited neighbours
-// (left, up, and for white up-left / up-right) by an atomicMin loop that
-// always links the larger root under the smaller, so every root is its
-// component's minimum flat index. compress: one pointer chase per pixel.
-// Reads inside the union loop go through L2 (__ldcg): the labels change
-// under atomics from other SMs.
+// Two levels, because one union-find over the whole frame in global
+// memory is bound by chains of dependent L2 reads and by the atomics of
+// many SMs on the few roots of the large components. The frame is cut into
+// tiles of tile_h rows by tile_w columns (ops/ccl_kernel.py ccl_plan), one
+// block a tile:
+//   A (tile_label_kernel): the block labels its tile in shared memory,
+//     with shared atomicMin links and path-halving finds on tile-local
+//     indices, then writes each pixel's global label, the global index of
+//     its tile-local root (tile-local row-major order is monotone in the
+//     flat index, so that root is the minimum of the tile's part of the
+//     component), and initialises the table at the tile-local roots (every
+//     final root is one);
+//   B (border_merge_kernel): only the pixels on a tile's top row, left
+//     column and right column union, and only across the tile border, in
+//     the global labels: atomicMin, larger root under smaller, finds
+//     through L2 with path halving;
+//   C (finalize_kernel): each pixel takes a slot, a tile-local node of its
+//     component; the block reduces its pixels per slot in shared memory,
+//     one thread per slot finds the final root and adds the slot's total
+//     with one global atomic, and every pixel writes its final label.
+// 127 pixels are singletons: they take no union, and C writes their table
+// entry with a plain store.
+//
+// Edges. Pixel p unions with its left and up neighbours of equal value,
+// and a 255 pixel with its up-left and up-right 255 neighbours, less the
+// edges that others imply (edge_mask): up when left and up-left are equal
+// too (left, up-left, up is a 4-connected path); up-left when left or up
+// is 255 too; up-right when up is 255 too. Left edges are never skipped,
+// and every skipped edge is implied by edges of pixels earlier in
+// row-major order, so the unions join exactly the components. Phase A
+// evaluates the rule with every neighbour outside the tile taken as
+// different (it never skips on what it cannot see); phase B takes the
+// edges that leave the tile with the whole frame in view. The diagonals
+// leave through the corners: a top-row pixel's up-left and up-right enter
+// the tiles above-left and above-right, a left-column pixel's up-left the
+// tile to the left (or above-left), a right-column pixel's up-right the
+// tile to the right (or, on the top row, above-right).
+//
+// Races. Every write to a label lowers it or replaces it by a smaller
+// index of the same component: a link (atomicMin of a root), a
+// path-halving store (a node's parent becomes its grandparent), C's store
+// of the final root. No write makes a node a root again, so finds end and
+// no cycle forms. A halving store may overwrite a concurrent atomicMin
+// only on a node that was no root when it was read; that atomicMin then
+// failed (it returned another value than the node), and its union goes on
+// with the value it returned, so the merge it was making still happens.
+// Integer min and integer counts do not depend on order, so the result is
+// the same in every run.
 #pragma once
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace rvt {
 namespace {   // internal linkage: included by several .cu files
 
+constexpr int kTileItems = 16;             // pixels of a tile per thread, at most
+constexpr int kTileSmemLimit = 48 * 1024;  // a block's shared memory, no opt-in
+constexpr int kTileSmemPerPixel = 8;       // phase C: a slot total, a final root
+
 // Counting build (-DRVT_CCL_COUNT_HOPS, off by default; see
-// scripts/mb_torch_ccl_phases.py): for each phase of kHopPhaseNames, the
-// hops (parent steps) of every find summed, the finds, and the most hops
-// of one find. RVT_HOPS_EXPORT(name) defines extern "C" name(out), which
-// copies the counts to the host's out[kHopPhases * 3] and zeroes them.
-constexpr int kHopPhases = 2;
-#define RVT_HOP_PHASE_NAMES "merge,compress"
+// scripts/mb_torch_ccl_phases.py): for each phase of RVT_HOP_PHASE_NAMES,
+// the hops (parent steps) of every find summed, the finds, and the most
+// hops of one find. RVT_HOPS_EXPORT(name) defines extern "C" name(out),
+// which copies the counts to the host's out[kHopPhases * 3] and zeroes
+// them, and name_phases(), the phase names.
+constexpr int kHopPhases = 3;
+#define RVT_HOP_PHASE_NAMES "tile,border,finalize"
 #ifdef RVT_CCL_COUNT_HOPS
 __device__ unsigned long long g_hops[kHopPhases][3];
 __device__ __forceinline__ void count_hops(int phase, unsigned hops) {
@@ -44,89 +94,312 @@ __device__ __forceinline__ void count_hops(int, unsigned) {}
 #define RVT_HOPS_EXPORT(name)
 #endif
 
-template <int kPhase>
-__device__ __forceinline__ int uf_find(const int* L, int x) {
+// The tiles' launch plan (ops/ccl_kernel.py ccl_plan), taken as given.
+struct TilePlan {
+  int tile_h, tile_w, tiles_x, tiles_y, threads, border_threads, smem;
+};
+
+// The plan's layout for (b, h, w) frames: tiles that cover the frame
+// exactly once, whole warps, each thread the same number of a tile's
+// pixels and at most kTileItems, phase C's tables in shared memory within
+// the default limit, grid sizes within the device's.
+inline bool plan_ok(const TilePlan& p, int b, int h, int w) {
+  const long long px = (long long)p.tile_h * p.tile_w;
+  return h >= 1 && w >= 1 && b >= 1 && b <= 65535 && p.tile_h >= 1 &&
+         p.tile_w >= 1 && (long long)p.tiles_x * p.tile_w >= w &&
+         (long long)(p.tiles_x - 1) * p.tile_w < w &&
+         (long long)p.tiles_y * p.tile_h >= h &&
+         (long long)(p.tiles_y - 1) * p.tile_h < h && p.tiles_y <= 65535 &&
+         p.threads >= 32 && p.threads <= 1024 && p.threads % 32 == 0 &&
+         px % p.threads == 0 && px / p.threads <= kTileItems &&
+         p.border_threads >= 32 && p.border_threads <= 1024 &&
+         p.border_threads % 32 == 0 && px * kTileSmemPerPixel <= p.smem &&
+         p.smem <= kTileSmemLimit;
+}
+
+struct Tile {      // this block's tile: origin and real (ragged) size
+  int y0, x0, rh, rw;
+};
+
+__device__ __forceinline__ Tile this_tile(int h, int w, int th, int tw) {
+  Tile t;
+  t.y0 = blockIdx.y * th;
+  t.x0 = blockIdx.x * tw;
+  t.rh = min(th, h - t.y0);
+  t.rw = min(tw, w - t.x0);
+  return t;
+}
+
+// Edges of pixel (y, x) to union: bit 0 left, 1 up, 2 up-left, 3
+// up-right (see the note above); get(y, x) is a pixel's value, -1 where
+// it cannot be seen.
+template <class Get>
+__device__ __forceinline__ unsigned edge_mask(const Get& get, int y, int x) {
+  const int v = get(y, x);
+  if (v == 127) return 0;
+  const bool l = get(y, x - 1) == v;
+  const bool u = get(y - 1, x) == v;
+  const bool ul = get(y - 1, x - 1) == v;
+  unsigned m = (unsigned)l | (unsigned)(u && !(l && ul)) << 1;
+  if (v == 255) {
+    const bool ur = get(y - 1, x + 1) == v;
+    m |= (unsigned)(ul && !l && !u) << 2 | (unsigned)(ur && !u) << 3;
+  }
+  return m;
+}
+
+// Loads and stores of the labels: shared memory in phase A, L2 in B and C
+// (other SMs change the global labels within the same launch).
+struct SharedLabels {
+  int* L;
+  __device__ int get(int x) const { return ((volatile int*)L)[x]; }
+  __device__ void set(int x, int v) const { ((volatile int*)L)[x] = v; }
+  __device__ int link(int x, int v) const { return atomicMin(L + x, v); }
+};
+struct GlobalLabels {
+  int* L;
+  __device__ int get(int x) const { return __ldcg(L + x); }
+  __device__ void set(int x, int v) const { __stcg(L + x, v); }
+  __device__ int link(int x, int v) const { return atomicMin(L + x, v); }
+};
+
+// The root of x, halving the path on the way: each visited node's parent
+// becomes its grandparent.
+template <int kPhase, class Labels>
+__device__ __forceinline__ int uf_find(const Labels& L, int x) {
   unsigned hops = 0;
-  int p = __ldcg(L + x);
-  while (p != x) {
-    x = p;
-    p = __ldcg(L + x);
+  for (;;) {
+    const int p = L.get(x);
+    if (p == x) break;
+    const int g = L.get(p);
+    ++hops;
+    if (g == p) {
+      x = p;
+      break;
+    }
+    L.set(x, g);
+    x = g;
     ++hops;
   }
   count_hops(kPhase, hops);
   return x;
 }
 
-__device__ void uf_union(int* L, int a, int b) {
-  bool done;
-  do {
-    a = uf_find<0>(L, a);
-    b = uf_find<0>(L, b);
-    if (a < b) {
-      const int old = atomicMin(L + b, a);
-      done = (old == b);
-      b = old;
-    } else if (b < a) {
-      const int old = atomicMin(L + a, b);
-      done = (old == a);
-      a = old;
-    } else {
-      done = true;
+// Join the sets of a and b: link the larger root under the smaller by
+// atomicMin; if that root was linked meanwhile, go on from what atomicMin
+// returned.
+template <int kPhase, class Labels>
+__device__ void uf_union(const Labels& L, int a, int b) {
+  for (;;) {
+    a = uf_find<kPhase>(L, a);
+    b = uf_find<kPhase>(L, b);
+    if (a == b) return;
+    if (a > b) {
+      const int t = a;
+      a = b;
+      b = t;
     }
-  } while (!done);
-}
-
-__global__ void init_kernel(int* labels, int n, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) labels[i] = i % n;
-}
-
-__global__ void merge_kernel(const uint8_t* __restrict__ thr, int* labels,
-                             int h, int w) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  if (x >= w) return;
-  const size_t base = (size_t)b * h * w;
-  const uint8_t* t = thr + base;
-  int* L = labels + base;
-  const int p = y * w + x;
-  const int v = t[p];
-  if (v == 127) return;
-  if (x > 0 && t[p - 1] == v) uf_union(L, p, p - 1);
-  if (y > 0) {
-    if (t[p - w] == v) uf_union(L, p, p - w);
-    if (v == 255) {
-      if (x > 0 && t[p - w - 1] == 255) uf_union(L, p, p - w - 1);
-      if (x + 1 < w && t[p - w + 1] == 255) uf_union(L, p, p - w + 1);
-    }
+    const int old = L.link(b, a);
+    if (old == b) return;
+    b = old;
   }
 }
 
-__global__ void compress_kernel(int* labels, int n, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int* L = labels + (size_t)(i / n) * n;
-  L[i % n] = uf_find<1>(L, i % n);
+// Phase A. Shared memory: tile_h * tile_w int labels, then as many image
+// bytes. kMin: the table starts at INT_MAX (K6), else at 0 (K2). done,
+// when not null, gets 0 at [b] (a counter of a later K2 launch).
+template <bool kMin>
+__global__ void __launch_bounds__(1024)
+    tile_label_kernel(const uint8_t* __restrict__ thr, int* labels,
+                      int* table, int* done, int h, int w, int th, int tw) {
+  extern __shared__ int smem[];
+  int* sl = smem;
+  uint8_t* si = reinterpret_cast<uint8_t*>(smem + th * tw);
+  const Tile tile = this_tile(h, w, th, tw);
+  const size_t base = (size_t)blockIdx.z * h * w;
+  const uint8_t* t = thr + base;
+  const int np = th * tw;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    const int ly = i / tw, lx = i - ly * tw;
+    si[i] = (ly < tile.rh && lx < tile.rw)
+                ? t[(size_t)(tile.y0 + ly) * w + tile.x0 + lx] : 127;
+    sl[i] = i;
+  }
+  if (done != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x == 0)
+    done[blockIdx.z] = 0;
+  __syncthreads();
+  const SharedLabels L{sl};
+  const auto get = [&](int y, int x) -> int {
+    return (y >= 0 && y < tile.rh && x >= 0 && x < tile.rw) ? si[y * tw + x]
+                                                            : -1;
+  };
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    const int ly = i / tw, lx = i - ly * tw;
+    if (ly >= tile.rh || lx >= tile.rw) continue;
+    const unsigned m = edge_mask(get, ly, lx);
+    if (m & 1u) uf_union<0>(L, i, i - 1);
+    if (m & 2u) uf_union<0>(L, i, i - tw);
+    if (m & 4u) uf_union<0>(L, i, i - tw - 1);
+    if (m & 8u) uf_union<0>(L, i, i - tw + 1);
+  }
+  __syncthreads();
+  int* lab = labels + base;
+  int* tab = table + base;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    const int ly = i / tw, lx = i - ly * tw;
+    if (ly >= tile.rh || lx >= tile.rw) continue;
+    const int r = uf_find<0>(L, i);
+    const int ry = r / tw;
+    const int p = (tile.y0 + ly) * w + tile.x0 + lx;
+    lab[p] = (tile.y0 + ry) * w + tile.x0 + (r - ry * tw);
+    if (r == i && si[i] != 127) tab[p] = kMin ? INT_MAX : 0;
+  }
 }
 
-// The three launches above, in order, on `stream`: labels (B, h*w) of the
-// (B, h, w) threshold image. Returns cudaGetLastError().
-inline cudaError_t label_pixels(const uint8_t* thr, int* labels, int b,
-                                int h, int w, cudaStream_t stream) {
-  const int n = h * w;
-  const int total = b * n;
-  const int t1 = 256;
-  const int g1 = (total + t1 - 1) / t1;
-  init_kernel<<<g1, t1, 0, stream>>>(labels, n, total);
+// Phase B: the tile's top row, left column and right column, in that
+// order, each pixel once; each unions its edges that leave the tile.
+__global__ void __launch_bounds__(1024)
+    border_merge_kernel(const uint8_t* __restrict__ thr, int* labels, int h,
+                        int w, int th, int tw) {
+  const Tile tile = this_tile(h, w, th, tw);
+  const size_t base = (size_t)blockIdx.z * h * w;
+  const uint8_t* t = thr + base;
+  const GlobalLabels L{labels + base};
+  const auto get = [&](int y, int x) -> int {
+    return (y >= 0 && y < h && x >= 0 && x < w) ? t[(size_t)y * w + x] : -1;
+  };
+  const int nb = tile.rw + (tile.rh - 1) * (tile.rw > 1 ? 2 : 1);
+  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
+    int ly, lx;
+    if (k < tile.rw) {
+      ly = 0;
+      lx = k;
+    } else if (k < tile.rw + tile.rh - 1) {
+      ly = k - tile.rw + 1;
+      lx = 0;
+    } else {
+      ly = k - tile.rw - tile.rh + 2;
+      lx = tile.rw - 1;
+    }
+    const int y = tile.y0 + ly, x = tile.x0 + lx;
+    const unsigned m = edge_mask(get, y, x);
+    const int p = y * w + x;
+    // finds start at tile-local roots, so B writes no other pixel's label
+    const int a = L.get(p);
+    if ((m & 1u) && lx == 0) uf_union<1>(L, a, L.get(p - 1));
+    if ((m & 2u) && ly == 0) uf_union<1>(L, a, L.get(p - w));
+    if ((m & 4u) && (ly == 0 || lx == 0)) uf_union<1>(L, a, L.get(p - w - 1));
+    if ((m & 8u) && (ly == 0 || lx == tile.rw - 1))
+      uf_union<1>(L, a, L.get(p - w + 1));
+  }
+}
+
+// Phase C. Shared memory: tile_h * tile_w slot totals, then as many final
+// roots (-1: not a slot). kMin: table[root] = the minimum of values over
+// the component (K6), else its pixel count (K2). A pixel's slot is the
+// label it holds where that lies in the tile (its tile-local root, or,
+// for a tile-local root that B linked, an ancestor), else the pixel
+// itself: a node of its component either way.
+template <bool kMin>
+__global__ void __launch_bounds__(1024)
+    finalize_kernel(const uint8_t* __restrict__ thr,
+                    const int* __restrict__ values, int* labels, int* table,
+                    int h, int w, int th, int tw) {
+  extern __shared__ int smem[];
+  const int np = th * tw;
+  int* sacc = smem;
+  int* sfin = smem + np;
+  const Tile tile = this_tile(h, w, th, tw);
+  const size_t base = (size_t)blockIdx.z * h * w;
+  const uint8_t* t = thr + base;
+  const GlobalLabels L{labels + base};
+  int* tab = table + base;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    sacc[i] = kMin ? INT_MAX : 0;
+    sfin[i] = -1;
+  }
+  __syncthreads();
+  const int items = np / blockDim.x;       // the same for every thread
+  const int lane = threadIdx.x & 31;
+  int slot[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    slot[k] = -1;
+    if (k >= items) continue;               // uniform over the block
+    const int i = k * blockDim.x + threadIdx.x;
+    const int ly = i / tw, lx = i - ly * tw;
+    int s = -1, v = kMin ? INT_MAX : 1;
+    if (ly < tile.rh && lx < tile.rw) {
+      const int p = (tile.y0 + ly) * w + tile.x0 + lx;
+      if (kMin) v = values[base + p];
+      if (t[p] == 127) {
+        tab[p] = v;                          // a singleton: its own root
+      } else {
+        const int q = L.get(p);
+        const int qy = q / w - tile.y0, qx = q % w - tile.x0;
+        s = (qy >= 0 && qy < tile.rh && qx >= 0 && qx < tile.rw)
+                ? qy * tw + qx : i;
+      }
+    }
+    slot[k] = s;
+    // lanes that share a slot reduce first, and their leader adds once
+    const unsigned peers = __match_any_sync(0xffffffffu, s);
+    const int total = kMin ? __reduce_min_sync(peers, v) : __popc(peers);
+    if (s >= 0 && lane == __ffs(peers) - 1) {
+      if (kMin)
+        atomicMin(sacc + s, total);
+      else
+        atomicAdd(sacc + s, total);
+      sfin[s] = 0;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    if (sfin[i] != 0) continue;
+    const int ly = i / tw;
+    const int f = uf_find<2>(L, (tile.y0 + ly) * w + tile.x0 + i - ly * tw);
+    if (kMin)
+      atomicMin(tab + f, sacc[i]);
+    else
+      atomicAdd(tab + f, sacc[i]);
+    sfin[i] = f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (slot[k] < 0) continue;
+    const int i = k * blockDim.x + threadIdx.x;
+    const int ly = i / tw;
+    L.set((tile.y0 + ly) * w + tile.x0 + i - ly * tw, sfin[slot[k]]);
+  }
+}
+
+// Phases A, B and C on `stream`: labels (B, h*w) of the (B, h, w)
+// threshold image and the table (B, h*w) at the roots (kMin: the minimum
+// of values, else sizes). *launches counts the launches made. Returns
+// cudaGetLastError() after each launch.
+template <bool kMin>
+cudaError_t label_tiles(const uint8_t* thr, const int* values, int* labels,
+                        int* table, int* done, int b, int h, int w,
+                        const TilePlan& plan, int* launches,
+                        cudaStream_t stream) {
+  const dim3 grid(plan.tiles_x, plan.tiles_y, b);
+  tile_label_kernel<kMin><<<grid, plan.threads, plan.smem, stream>>>(
+      thr, labels, table, done, h, w, plan.tile_h, plan.tile_w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_kernel<<<dim3((w + 127) / 128, h, b), 128, 0, stream>>>(thr, labels,
-                                                                 h, w);
+  ++*launches;
+  border_merge_kernel<<<grid, plan.border_threads, 0, stream>>>(
+      thr, labels, h, w, plan.tile_h, plan.tile_w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  compress_kernel<<<g1, t1, 0, stream>>>(labels, n, total);
-  return cudaGetLastError();
+  ++*launches;
+  finalize_kernel<kMin><<<grid, plan.threads, plan.smem, stream>>>(
+      thr, values, labels, table, h, w, plan.tile_h, plan.tile_w);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 """K6 (propagate_fixpoint), K7 (label_histogram) and K8 (propagate): the
-flood CCL's kernels.
+flood CCL's kernels, and the launch plan of the tiled union-find that K6
+and K2 (ops/frontend_kernel.py) label with.
 
 Replace ros_vision_tpu/ops/ccl_pallas.py propagate_fixpoint,
 label_histogram and propagate. A CUDA tensor launches csrc/flood.cu; a
@@ -7,6 +8,9 @@ CPU tensor runs the plain versions of ops/ccl.py. Outputs are bit-identical
 either way.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -17,6 +21,51 @@ from ros_vision_tpu_torch.ops import ccl
 fixpoint_launches = _build.counter("propagate_fixpoint")
 histogram_launches = _build.counter("label_histogram")
 propagate_launches = _build.counter("propagate")
+
+TILE_H = 32                # rows of a tile (csrc/unionfind.cuh)
+TILE_W = 128               # columns of a tile
+TILE_THREADS = 512         # per tile block in phases A and C
+TILE_ITEMS = 16            # a tile's pixels per thread, at most
+TILE_SMEM_PER_PIXEL = 8    # phase C: a slot total and a final root
+SMEM_LIMIT = 48 * 1024     # a block's shared memory without opting in
+MAX_GRID_YZ = 65535
+FIXPOINT_LAUNCHES = 4      # device launches per K6 call (csrc/flood.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class CclPlan:
+    """How csrc/unionfind.cuh cuts (B, h, w) frames into tiles, one block
+    a tile; grid (tiles_x, tiles_y, B)."""
+    tile_h: int
+    tile_w: int
+    tiles_x: int
+    tiles_y: int
+    threads: int         # per block in phases A (tile) and C (finalize)
+    border_threads: int  # per block in phase B (border merge)
+    smem_bytes: int      # dynamic shared memory per block in A and C
+
+    def args(self) -> tuple:
+        """The launchers' plan arguments, in their order."""
+        return (self.tile_h, self.tile_w, self.tiles_x, self.tiles_y,
+                self.threads, self.border_threads, self.smem_bytes)
+
+
+def ccl_plan(h: int, w: int) -> CclPlan:
+    """Tiles of 32 rows by 128 columns (the last row and column of tiles
+    ragged), 512 threads (8 pixels each) in phases A and C, and in phase B
+    one thread per pixel of a tile's top row and left and right columns.
+    Shared memory: phase C's slot totals and final roots, 8 bytes a pixel
+    (phase A's labels and image bytes take 5)."""
+    if h < 1 or w < 1:
+        raise ValueError(f"frames of {h}x{w} pixels cannot be labelled")
+    tiles_y = -(-h // TILE_H)
+    if tiles_y > MAX_GRID_YZ:
+        raise ValueError(f"{h} rows need {tiles_y} tile rows, more than "
+                         f"the grid's {MAX_GRID_YZ}")
+    return CclPlan(tile_h=TILE_H, tile_w=TILE_W, tiles_x=-(-w // TILE_W),
+                   tiles_y=tiles_y, threads=TILE_THREADS,
+                   border_threads=-(-(TILE_W + 2 * TILE_H) // 32) * 32,
+                   smem_bytes=TILE_SMEM_PER_PIXEL * TILE_H * TILE_W)
 
 
 def _propagate_fixpoint_cuda(threshim: torch.Tensor,
@@ -29,9 +78,12 @@ def _propagate_fixpoint_cuda(threshim: torch.Tensor,
     labels = torch.empty((b, h * w), **i32)
     rootmin = torch.empty((b, h * w), **i32)
     out = torch.empty((b, h, w), **i32)
+    made = ctypes.c_int(0)
     _build.launch("rvt_propagate_fixpoint", dev, threshim, values, labels,
-                  rootmin, out, b, h, w)
+                  rootmin, out, ctypes.addressof(made), b, h, w,
+                  *ccl_plan(h, w).args())
     fixpoint_launches.count += 1
+    fixpoint_launches.kernels += made.value
     return out
 
 

@@ -18,14 +18,17 @@ needs lane-aligned planes, and both compute one contract.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.device import kernel_route
-from ros_vision_tpu_torch.ops import ccl, quadfit
+from ros_vision_tpu_torch.ops import ccl, ccl_kernel, quadfit
 
 MIN_BLOB_PIXELS = 25
 _SCAN_TILE = 1024          # elements per scan block in csrc/scan.cuh
+RANK_LAUNCHES = 6          # device launches per K2 call (csrc/ccl.cu)
 
 rank_launches = _build.counter("rank_image")
 boundary_launches = _build.counter("boundary_compact")
@@ -42,13 +45,17 @@ def _label_components_cuda(threshim: torch.Tensor, min_blob: int,
     size_root = torch.empty((b, n), **i32)
     rank_root = torch.empty((b, n), **i32)
     nblk = -(-n // _SCAN_TILE)
-    block_counts = torch.empty((b, nblk + 1), **i32)
+    # the rows of block counts, then one counter per frame
+    block_counts = torch.empty((b * (nblk + 1) + b,), **i32)
     ranks = torch.empty((b, n), **i32)
     sizes = torch.empty((b, n), **i32) if with_sizes else None
+    made = ctypes.c_int(0)
     _build.launch("rvt_rank_image", dev, threshim, labels, size_root,
-                  rank_root, block_counts, ranks, sizes, b, h, w, min_blob,
-                  ccl.MAX_BLOBS)
+                  rank_root, block_counts, ranks, sizes,
+                  ctypes.addressof(made), b, h, w, min_blob, ccl.MAX_BLOBS,
+                  *ccl_kernel.ccl_plan(h, w).args())
     rank_launches.count += 1
+    rank_launches.kernels += made.value
     return labels, sizes, ranks
 
 
