@@ -131,9 +131,11 @@ extern "C" int rvt_rank_image(const uint8_t* thr, int* labels,
   const int t1 = 256;
   const int nblk = (n + rvt::kScanTile - 1) / rvt::kScanTile;
   int* done = block_counts + (size_t)b * (nblk + 1);
-  cudaError_t err = rvt::label_tiles<false>(thr, nullptr, labels, size_root,
-                                            done, b, h, w, plan, launches,
-                                            stream);
+  // rank_root holds the union-find's forest until rank_write_kernel
+  // overwrites all of it
+  cudaError_t err = rvt::label_tiles<false>(thr, nullptr, rank_root, labels,
+                                            size_root, done, b, h, w, plan,
+                                            launches, stream);
   if (err != cudaSuccess) return (int)err;
 #define RVT_CHECK()                                   \
   err = cudaGetLastError();                           \

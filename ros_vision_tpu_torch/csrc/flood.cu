@@ -139,7 +139,8 @@ extern "C" int rvt_propagate_fixpoint(const uint8_t* thr, const int* values,
   if (!rvt::plan_ok(plan, b, h, w)) return (int)cudaErrorInvalidValue;
   const int n = h * w;
   const int total = b * n;
-  cudaError_t err = rvt::label_tiles<true>(thr, values, labels, rootmin,
+  // out holds the union-find's forest until the broadcast overwrites it
+  cudaError_t err = rvt::label_tiles<true>(thr, values, out, labels, rootmin,
                                            nullptr, b, h, w, plan, launches,
                                            stream);
   if (err != cudaSuccess) return (int)err;

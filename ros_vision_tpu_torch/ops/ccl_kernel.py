@@ -23,12 +23,12 @@ histogram_launches = _build.counter("label_histogram")
 propagate_launches = _build.counter("propagate")
 
 TILE_H = 32                # rows of a tile (csrc/unionfind.cuh)
-TILE_W = 128               # columns of a tile
-TILE_THREADS = 512         # per tile block in phases A and C
-TILE_ITEMS = 16            # a tile's pixels per thread, at most
+TILE_W = 128               # columns of a tile: 128 or 256
+TILE_ITEMS = 8             # a tile's pixels per thread in phases A and C
 TILE_SMEM_PER_PIXEL = 8    # phase C: a slot total and a final root
 SMEM_LIMIT = 48 * 1024     # a block's shared memory without opting in
 MAX_GRID_YZ = 65535
+MAX_FRAME_PIXELS = 1 << 24  # phase C divides flat indices by w in float
 FIXPOINT_LAUNCHES = 4      # device launches per K6 call (csrc/flood.cu)
 
 
@@ -56,14 +56,15 @@ def ccl_plan(h: int, w: int) -> CclPlan:
     one thread per pixel of a tile's top row and left and right columns.
     Shared memory: phase C's slot totals and final roots, 8 bytes a pixel
     (phase A's labels and image bytes take 5)."""
-    if h < 1 or w < 1:
-        raise ValueError(f"frames of {h}x{w} pixels cannot be labelled")
+    if h < 1 or w < 1 or h * w > MAX_FRAME_PIXELS:
+        raise ValueError(f"frames of {h}x{w} pixels cannot be labelled "
+                         f"(1 to {MAX_FRAME_PIXELS} pixels)")
     tiles_y = -(-h // TILE_H)
     if tiles_y > MAX_GRID_YZ:
         raise ValueError(f"{h} rows need {tiles_y} tile rows, more than "
                          f"the grid's {MAX_GRID_YZ}")
     return CclPlan(tile_h=TILE_H, tile_w=TILE_W, tiles_x=-(-w // TILE_W),
-                   tiles_y=tiles_y, threads=TILE_THREADS,
+                   tiles_y=tiles_y, threads=TILE_H * TILE_W // TILE_ITEMS,
                    border_threads=-(-(TILE_W + 2 * TILE_H) // 32) * 32,
                    smem_bytes=TILE_SMEM_PER_PIXEL * TILE_H * TILE_W)
 

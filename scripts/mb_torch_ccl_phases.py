@@ -21,11 +21,15 @@ package and, for each input:
   and the whole call's device and call time from chip_smoke.both_ms
   (device: calls queued behind a torch.cuda._sleep; call: one call
   between CUDA events, the host's enqueue included);
-- where the root's csrc/unionfind.cuh has the RVT_CCL_COUNT_HOPS build
-  flag, builds the kernels again with it (a library of its own under
-  build/) and reports, per phase of the union-find, the hops (parent
-  steps) of its finds per pixel, per find, and the most of one find.
-  The counting build's times are not reported: its atomics perturb them.
+- where the root's csrc/unionfind.cuh has the RVT_CCL_COUNT_HOPS and
+  RVT_CCL_STEP_CLOCKS build flags, builds the kernels again with each (a
+  library of its own under build/) and reports, per phase of the
+  union-find, the finds and the hops (parent steps) of its finds per
+  pixel, the hops per find and the most of one find, the unions per pixel
+  and the rounds (atomicMin tries) per union; and, from the second
+  build, the clock cycles of each step of the tile phase per block (its
+  thread 0). The counting builds' kernel times are not reported: their
+  atomics perturb them.
 
 Prints one JSON line per root, kernel and input, then the card's name and
 power limit; exits nonzero without a card or if a kernel disagrees.
@@ -44,6 +48,8 @@ ROOT = Path(__file__).resolve().parent.parent
 INPUTS = ROOT / "build" / "mb_torch_ccl_phases" / "inputs.pt"
 CALLS = 20
 HOP_FLAG = "RVT_CCL_COUNT_HOPS"
+CLOCK_FLAG = "RVT_CCL_STEP_CLOCKS"
+HOP_STATS = 5      # per phase: finds, hops, most hops, unions, union rounds
 HOP_EXPORTS = {"rank_image": "rvt_rank_image_hops",
                "propagate_fixpoint": "rvt_propagate_fixpoint_hops"}
 
@@ -167,22 +173,25 @@ def time_root(root: Path) -> None:
                 **cs.both_ms(lambda: run()))), flush=True)
 
 
-def hops_root(root: Path) -> None:
-    """Find hops per phase of root's K2 and K6, from a counting build."""
-    sys.path.insert(0, str(root))
+def counting_runs(root: Path, flag: str) -> dict:
+    """{(kernel, at): the counts of one call} from a build of root's
+    kernels with -D<flag>, with (phase names, step names)."""
     import torch
     from ros_vision_tpu_torch import _build
     dev = torch.device("cuda", 0)
     _build.LIBRARY = _build.KernelLibrary(
-        flags=_build.NVCC_FLAGS + (f"-D{HOP_FLAG}",))
+        flags=_build.NVCC_FLAGS + (f"-D{flag}",))
     _build._FUNCS.clear()
     lib = _build.LIBRARY.get()
+    out = {}
     for kernel, planes in torch.load(INPUTS).items():
         read = getattr(lib, HOP_EXPORTS[kernel])
         names = getattr(lib, HOP_EXPORTS[kernel] + "_phases")
         names.restype = ctypes.c_char_p
-        phases = names().decode().split(",")
-        buf = (ctypes.c_ulonglong * (3 * len(phases)))()
+        phases, steps = (part.split(",")
+                         for part in names().decode().split("|"))
+        buf = (ctypes.c_ulonglong * (HOP_STATS * len(phases)
+                                     + len(steps)))()
         read.argtypes = [ctypes.c_void_p]
         for at, th in planes.items():
             run, _ = calls_of(kernel, th, dev)
@@ -191,17 +200,38 @@ def hops_root(root: Path) -> None:
             run()
             torch.cuda.synchronize()
             if read(ctypes.addressof(buf)) != 0:
-                raise RuntimeError(f"{kernel}: reading the hop counts failed")
-            pixels = th.numel()
-            out = {}
-            for i, name in enumerate(phases):
-                hops, finds, most = buf[3 * i:3 * i + 3]
-                out[name] = dict(finds_per_pixel=finds / pixels,
-                                 hops_per_pixel=hops / pixels,
-                                 hops_per_find=hops / max(finds, 1),
-                                 max_hops=most)
-            print(json.dumps(dict(root=str(root), kernel=kernel, at=at,
-                                  hops=out)), flush=True)
+                raise RuntimeError(f"{kernel}: reading the counts failed")
+            out[kernel, at] = (list(buf), phases, steps, th.shape)
+    return out
+
+
+def hops_root(root: Path) -> None:
+    """Union-find statistics of root's K2 and K6 from the two counting
+    builds: finds, hops and union rounds per phase, and phase A's cycles
+    by step."""
+    sys.path.insert(0, str(root))
+    from ros_vision_tpu_torch.ops import ccl_kernel
+    hops = counting_runs(root, HOP_FLAG)
+    clocks = counting_runs(root, CLOCK_FLAG)
+    for (kernel, at), (buf, phases, steps, shape) in hops.items():
+        pixels = shape[0] * shape[1] * shape[2]
+        out = {}
+        for i, name in enumerate(phases):
+            finds, nhops, most, unions, rounds = \
+                buf[HOP_STATS * i:HOP_STATS * (i + 1)]
+            out[name] = dict(finds_per_pixel=finds / pixels,
+                             hops_per_pixel=nhops / pixels,
+                             hops_per_find=nhops / max(finds, 1),
+                             max_hops=most,
+                             unions_per_pixel=unions / pixels,
+                             rounds_per_union=rounds / max(unions, 1))
+        plan = ccl_kernel.ccl_plan(*shape[1:])
+        blocks = plan.tiles_x * plan.tiles_y * shape[0]
+        cycles = clocks[kernel, at][0][HOP_STATS * len(phases):]
+        print(json.dumps(dict(
+            root=str(root), kernel=kernel, at=at, hops=out,
+            tile_step_cycles_per_block={
+                s: c / blocks for s, c in zip(steps, cycles)})), flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -216,7 +246,7 @@ def main(argv: list[str]) -> int:
     for root in argv or ["."]:
         modes = ["--time"]
         src = Path(root) / "ros_vision_tpu_torch" / "csrc" / "unionfind.cuh"
-        if HOP_FLAG in src.read_text():
+        if CLOCK_FLAG in src.read_text():
             modes.append("--hops")
         for mode in modes:
             run = subprocess.run(me + [mode, root], capture_output=True,

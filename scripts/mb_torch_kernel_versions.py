@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""K4 value_histogram and K9 sort_tpu of several checkouts of the port,
-timed on one CUDA card on the same inputs, the device time apart from the
-host's enqueue.
+"""K2 rank_image, K4 value_histogram, K6 propagate_fixpoint and K9
+sort_tpu of several checkouts of the port, timed on one CUDA card on the
+same inputs, the device time apart from the host's enqueue.
 
     python3 scripts/mb_torch_kernel_versions.py ROOT [ROOT ...]
 
 Each ROOT is the top of a checkout that holds ros_vision_tpu_torch/ (`.`
 for this one), for instance an older commit unpacked with `git archive`
 under build/. First, with this checkout's package, one process captures
-the inputs one use_pallas_sort cluster_and_fit call gives the two kernels
-on chip_smoke.py's bench batches at B = 4: the segment ids and peak
+the inputs one use_pallas_sort cluster_and_fit call gives K4 and K9 on
+chip_smoke.py's bench batches at B = 4: the segment ids and peak
 segments at (4, 32768) (1280x800) and (4, 131072) (1920x1080), and the
-four sorts' operands at both widths. Then each ROOT, in the order given
+four sorts' operands at both widths; and the threshold planes of those
+batches and of the clutter frames, K2's at 640x400 and K6's at 960x540
+(with the flat pixel indices as values, as label_components_flood passes
+them). Then each ROOT, in the order given
 (so "OLD . . OLD" takes them in turns), runs in a process of its own that
 imports that root's package, builds its kernels, checks every call
 bit-exact against the root's plain version and times it with
@@ -55,13 +58,18 @@ def capture() -> None:
     from ros_vision_tpu_torch.ops import threshold_kernel as tk
     cs = timing_helpers()
     dev = require_cuda()
-    saved = {"hist": {}, "sort": {}}
+    saved = {"hist": {}, "sort": {}, "ccl": {}}
     for label, k in SIZES.items():
         w, h, noise = ((cs.W, cs.H, 1.0) if k == 32768
                        else (cs.W2, cs.H2, cs.NOISE_1080))
         g = torch.from_numpy(np.stack([cs.bench_scene(seed, w, h, noise)[0]
                                        for seed in range(4)])).to(dev)
         decim, th = tk.adaptive_threshold_plain(g)
+        kernel = "rank_image" if k == 32768 else "propagate_fixpoint"
+        clutter = torch.from_numpy(cs.clutter_frame(width=w, height=h)[None])
+        saved["ccl"][f"{w // 2}x{h // 2} B=4 bench"] = (kernel, th.cpu())
+        saved["ccl"][f"{w // 2}x{h // 2} B=1 clutter"] = (
+            kernel, tk.adaptive_threshold_plain(clutter.to(dev))[1].cpu())
         ranks = fk.label_components_plain(th)[2].view(th.shape)
         p_cap = qf.QuadFitConfig(max_points=k).max_boundary_pixels
         key, pack2, _ = fk.boundary_compact(th, ranks, p_cap, k)
@@ -75,8 +83,26 @@ def capture() -> None:
     torch.save(saved, INPUTS)
 
 
+def ccl_calls(kernel: str, th):
+    """(kernel call, its outputs, the plain version's outputs) of K2 or K6
+    on the threshold plane th (K6 on the flat pixel indices)."""
+    import torch
+    from ros_vision_tpu_torch.ops import ccl
+    from ros_vision_tpu_torch.ops import ccl_kernel as ck
+    from ros_vision_tpu_torch.ops import frontend_kernel as fk
+    if kernel == "rank_image":
+        return (lambda: fk.rank_image(th), fk.label_components(th),
+                fk.label_components_plain(th))
+    b, h, w = th.shape
+    flat = torch.arange(h * w, dtype=torch.int32, device=th.device)
+    flat = flat.view(1, h, w).expand(b, h, w).contiguous()
+    return (lambda: ck.propagate_fixpoint(th, flat),
+            (ck.propagate_fixpoint(th, flat),),
+            (ccl.propagate_fixpoint(th, flat),))
+
+
 def time_root(root: Path) -> None:
-    """Check and time root's K4 and K9 on the saved inputs."""
+    """Check and time root's K2, K4, K6 and K9 on the saved inputs."""
     sys.path.insert(0, str(root))
     import torch
     import ros_vision_tpu_torch
@@ -104,6 +130,11 @@ def time_root(root: Path) -> None:
                      f"{root}: sort_tpu differs at {at}, {len(ops)} planes")
             rows.append(("sort_tpu", f"{at}, {len(ops)} plane(s)",
                          cs.both_ms(lambda: sk.sort_tpu(ops, nk))))
+    for at, (kernel, th) in saved["ccl"].items():
+        run, got, want = ccl_calls(kernel, th.to(dev))
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{root}: {kernel} differs at {at}")
+        rows.append((kernel, at, cs.both_ms(run)))
     for kernel, at, t in rows:
         print(json.dumps(dict(root=str(root), kernel=kernel, at=at, **t)))
 

@@ -10,12 +10,14 @@ without a card.
 
 Phase A: union-find inside each tile on tile-local indices, with the edge
 rule evaluated as the tile sees it (neighbours outside the tile count as
-different); each pixel's label is the global index of its tile-local
-root. Phase B: the pixels of each tile's top row, left column and right
+different); runs of equal values within a warp's 32 pixels of a row start
+linked to their first pixel, so left edges are unioned only between
+warps; each pixel's label is the global index of its tile-local root. Phase B: the pixels of each tile's top row, left column and right
 column union their edges that leave the tile, with the whole frame in
 view, finds starting at tile-local roots. Phase C: per tile, each pixel's
 slot (its label where that lies in the tile, else the pixel), one total
-per slot, one find per slot, then every pixel's final label.
+per slot, one find per slot, then every pixel's final label, into an
+array of its own (the union-find's forest is scratch).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -94,7 +96,7 @@ def edge_masks(img: np.ndarray, plan=None) -> np.ndarray:
 
 
 class UnionFind:
-    """csrc/unionfind.cuh uf_find / uf_union on one label array:
+    """csrc/unionfind.cuh warp_find / warp_union on one label array:
     path-halving finds, the larger root linked under the smaller."""
 
     def __init__(self, labels: np.ndarray):
@@ -149,9 +151,19 @@ def emulate(img: np.ndarray, values: np.ndarray, plan):
     mask_a = edge_masks(img, plan)
     for y0, x0, rh, rw in _tiles(plan, h, w):
         uf = UnionFind(np.arange(th * tw))
+        # a pixel's first parent: the first pixel of its run of equal
+        # values among its warp's 32 (lx // 32)
+        for ly in range(rh):
+            for lx in range(rw):
+                if lx % 32 and mask_a[y0 + ly, x0 + lx] & 1:
+                    i = ly * tw + lx
+                    uf.L[i] = uf.L[i - 1]
+        # left edges only between warps, the others by the rule
         for ly in range(rh):
             for lx in range(rw):
                 m, i = mask_a[y0 + ly, x0 + lx], ly * tw + lx
+                if lx % 32:
+                    m &= ~1
                 for bit, dy, dx in _EDGES:
                     if m & bit:
                         uf.union(i, i + dy * tw + dx)
@@ -180,6 +192,7 @@ def emulate(img: np.ndarray, values: np.ndarray, plan):
     changed = np.flatnonzero(L != before)
     assert tile_root[changed].all(), "phase B wrote a non-root's label"
     # C: slots per tile, one find per slot
+    labels = np.arange(h * w)
     size_root = np.zeros(h * w, np.int64)
     min_root = np.full(h * w, INT32_MAX, np.int64)
     for y0, x0, rh, rw in _tiles(plan, h, w):
@@ -202,8 +215,8 @@ def emulate(img: np.ndarray, values: np.ndarray, plan):
             size_root[f] += acc_n[s]
             min_root[f] = min(min_root[f], acc_min[s])
         for p, s in slot_of.items():
-            L[p] = final[s]
-    return L, size_root, min_root, crossed
+            labels[p] = final[s]
+    return labels, size_root, min_root, crossed
 
 
 def _cross_edges(img: np.ndarray, plan) -> set:
@@ -288,7 +301,9 @@ def test_ccl_plan_fits_the_launchers_layout(h, w):
     plan = ck.ccl_plan(h, w)
     px = plan.tile_h * plan.tile_w
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
-    assert px % plan.threads == 0 and px // plan.threads <= ck.TILE_ITEMS
+    assert px == plan.threads * ck.TILE_ITEMS
+    # a thread keeps one column of its tile, a warp 32 pixels of one row
+    assert plan.tile_w in (128, 256) and plan.threads % plan.tile_w == 0
     assert plan.border_threads % 32 == 0 and plan.border_threads <= 1024
     # one phase-B thread per border pixel of a full tile
     assert plan.border_threads >= plan.tile_w + 2 * (plan.tile_h - 1)
@@ -299,8 +314,8 @@ def test_ccl_plan_fits_the_launchers_layout(h, w):
                            plan.smem_bytes)
 
 
-@pytest.mark.parametrize("h,w", [(0, 5), (5, 0),
-                                 (ck.MAX_GRID_YZ * ck.TILE_H + 1, 8)])
+@pytest.mark.parametrize("h,w", [(0, 5), (5, 0), (4097, 4097),
+                                 (ck.MAX_GRID_YZ * ck.TILE_H + 1, 1)])
 def test_ccl_plan_refuses_what_the_launchers_reject(h, w):
     with pytest.raises(ValueError):
         ck.ccl_plan(h, w)
