@@ -65,6 +65,7 @@ namespace rvt {
 namespace {   // internal linkage: included by several .cu files
 
 constexpr int kTileItems = 8;              // pixels of a tile per thread
+static_assert(kTileItems * 4 <= 32, "phase A queues 4 edge bits a pixel");
 constexpr int kTileSmemLimit = 48 * 1024;  // a block's shared memory, no opt-in
 constexpr int kTileSmemPerPixel = 8;       // phase C: a slot total, a final root
 
@@ -313,14 +314,22 @@ __global__ void __launch_bounds__(1024)
     return (y >= 0 && y < tile.rh && x >= 0 && x < tile.rw)
                ? si[y * kTileW + x] : -1;
   };
+  // this thread's edges, 4 bits a pixel (left only for lane 0), unioned
+  // one at a time while any lane of the warp has one left
+  unsigned edges = 0;
 #pragma unroll
-  for (int k = 0; k < kTileItems; ++k) {
-    const int i = tile.ly(k) * kTileW + lx;
-    const unsigned m = tile.in(k) ? edge_mask(get, tile.ly(k), lx) : 0u;
-    warp_union<0>(L, (m & 1u) && lane == 0, i, i - 1);
-    warp_union<0>(L, m & 2u, i, i - kTileW);
-    warp_union<0>(L, m & 4u, i, i - kTileW - 1);
-    warp_union<0>(L, m & 8u, i, i - kTileW + 1);
+  for (int k = 0; k < kTileItems; ++k)
+    if (tile.in(k))
+      edges |= (edge_mask(get, tile.ly(k), lx) & (lane == 0 ? 15u : 14u))
+               << 4 * k;
+  while (__any_sync(0xffffffffu, edges != 0)) {
+    const int bit = edges ? __ffs(edges) - 1 : 0;
+    const int e = bit & 3;
+    const int i = tile.ly(bit >> 2) * kTileW + lx;
+    warp_union<0>(L, edges != 0, i,
+                  i - (e == 0 ? 1 : e == 1 ? kTileW : e == 2 ? kTileW + 1
+                                                           : kTileW - 1));
+    edges &= edges - 1;
   }
   __syncthreads();
   count_step(2, step_clock() - clock0);
@@ -443,6 +452,7 @@ __global__ void __launch_bounds__(1024)
               ? qy * kTileW + qx : tile.ly(k) * kTileW + tile.lx;
     }
     q[k] = s;
+    if (!__any_sync(0xffffffffu, s >= 0)) continue;   // all singletons
     // lanes that share a slot reduce first, and their leader adds once
     const unsigned peers = __match_any_sync(0xffffffffu, s);
     const int total = kMin ? __reduce_min_sync(peers, val[k]) : __popc(peers);
@@ -455,17 +465,25 @@ __global__ void __launch_bounds__(1024)
     }
   }
   __syncthreads();
+  // this thread's slots, one bit a pixel, found one at a time while any
+  // lane of the warp has one left
+  unsigned slots = 0;
 #pragma unroll
-  for (int k = 0; k < kTileItems; ++k) {
+  for (int k = 0; k < kTileItems; ++k)
+    if (sfin[tile.ly(k) * kTileW + tile.lx] == 0) slots |= 1u << k;
+  while (__any_sync(0xffffffffu, slots != 0)) {
+    const int k = slots ? __ffs(slots) - 1 : 0;
     const int i = tile.ly(k) * kTileW + tile.lx;
-    const bool slot = sfin[i] == 0;
-    const int f = warp_find<2>(L, gorigin + tile.ly(k) * w + tile.lx, slot);
-    if (!slot) continue;
-    if (kMin)
-      atomicMin(tab + f, sacc[i]);
-    else
-      atomicAdd(tab + f, sacc[i]);
-    sfin[i] = f;
+    const int f =
+        warp_find<2>(L, gorigin + tile.ly(k) * w + tile.lx, slots != 0);
+    if (slots != 0) {
+      if (kMin)
+        atomicMin(tab + f, sacc[i]);
+      else
+        atomicAdd(tab + f, sacc[i]);
+      sfin[i] = f;
+    }
+    slots &= slots - 1;
   }
   __syncthreads();
 #pragma unroll
