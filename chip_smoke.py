@@ -21,8 +21,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
      which compares with device_ms. K1-K3 at the 1280x800 tag36h11
      path's shapes (the 4-tag bench scene at B=4 with four noise seeds,
      plus one cluttered frame that overflows both boundary caps) and
-     again at 1920x1080; K4 and K9 on the inputs that one
-     use_pallas_sort cluster_and_fit call gives them on those batches:
+     again at 1920x1080; K2 and K6 (the tiled union-find) also on
+     staircase (255 diagonals through the tiles' corners), spiral and comb
+     planes at 640x400 and 960x540 and on two ragged frames, K6 with flat
+     indices, the packed per-root table and random values, each call
+     checked to make its C launcher's fixed number of device launches
+     (K2 6, K6 4) and repeated 10 times with identical outputs; K4 and
+     K9 on the inputs that one use_pallas_sort cluster_and_fit call gives
+     them on those batches:
      K4 on the segment ids and peak segments at (4, 32768) and
      (4, 131072), one kernel launch a call; K9 on the four sorts at
      K = 8192, 32768 and 131072 plus random, duplicate, sentinel, K=1000,
@@ -51,6 +57,8 @@ K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
 Every path of phases 3-5 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
+On every path the device launches that the C launchers of K2, K4 and K6
+report equal their fixed number per call times the calls.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -75,6 +83,7 @@ W2, H2 = 1920, 1080
 # JAX detector finds none of the tags there; sigma 0.75 keeps all four.
 NOISE_1080 = 0.75
 REPS = 20
+REPEATS = 10      # repeated calls of K2 and K6 on each plane, compared
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
 # cores (the rate bound_ms uses for the integer and float work here)
@@ -434,12 +443,19 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
 
     def device_launches(counter, call, want: int, what: str):
         """call(), checking that its C launcher made `want` device
-        launches."""
+        launches, and that REPEATS more calls (their atomics racing in
+        other orders) give the same outputs."""
         before = counter.kernels
         out = call()
         made = counter.kernels - before
         check(made == want, f"{what}: {made} device launches in one call, "
               f"not {want}")
+        for _ in range(REPEATS):
+            again = call()
+            check(all(torch.equal(a, b) for a, b in zip(
+                (out,) if isinstance(out, torch.Tensor) else out,
+                (again,) if isinstance(again, torch.Tensor) else again)),
+                  f"{what}: a repeated call gave other outputs")
         return out
 
     # K2 (labels, sizes and ranks; the clutter frame overflows the ranks)

@@ -22,10 +22,12 @@
 // the result is exact. Neither INT32_MAX (which label_components_flood
 // floods for non-roots) nor 2^30 is a sentinel here: both are values.
 // Measured (scripts/mb_torch_ccl_phases.py, NVIDIA H100 80GB HBM3,
-// 700.00 W, B=4 960x540 bench planes): the one-level union-find of the
-// earlier design took 0.477 ms in 6 launches, 0.391 of it in its merge
-// launch (1.6 finds and 8.4 hops a pixel, up to 184 hops in one find)
-// and 0.044 in its warp-aggregated atomicMin launch.
+// 700.00 W, B=4 960x540 bench planes, device ms summed over the launches):
+// the one-level union-find of the earlier design took 0.477 in 6
+// launches, 0.391 of it in its merge launch (1.6 finds and 8.4 hops a
+// pixel, up to 184 hops in one find) and 0.044 in its warp-aggregated
+// atomicMin launch; this design 0.073 in 4: tile 0.033, border 0.008,
+// finalize 0.024, broadcast 0.008.
 //
 // K7 replaces ccl_pallas.py label_histogram (pallas_call at :376, kernel
 // body _make_hist_kernel:339): counts[b, v] = #(labels[b] == v) for v in

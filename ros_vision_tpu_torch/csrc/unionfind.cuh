@@ -10,24 +10,27 @@
 // memory is bound by chains of dependent L2 reads and by the atomics of
 // many SMs on the few roots of the large components. The frame is cut into
 // tiles of tile_h rows by tile_w columns (ops/ccl_kernel.py ccl_plan), one
-// block a tile:
-//   A (tile_label_kernel): the block labels its tile in shared memory,
-//     with shared atomicMin links and path-halving finds on tile-local
-//     indices, then writes each pixel's global label, the global index of
-//     its tile-local root (tile-local row-major order is monotone in the
-//     flat index, so that root is the minimum of the tile's part of the
+// block a tile; the union-find's forest is a scratch plane:
+//   A (tile_label_kernel): the block labels its tile in shared memory on
+//     tile-local indices: each pixel starts under the first pixel of its
+//     run of equal values within its warp's 32 (one ballot), then the
+//     other edges are unioned with shared atomicMin links and path-halving
+//     finds. It writes each pixel's forest entry, the global index of its
+//     tile-local root (tile-local row-major order is monotone in the flat
+//     index, so that root is the minimum of the tile's part of the
 //     component), and initialises the table at the tile-local roots (every
 //     final root is one);
 //   B (border_merge_kernel): only the pixels on a tile's top row, left
 //     column and right column union, and only across the tile border, in
-//     the global labels: atomicMin, larger root under smaller, finds
+//     the global forest: atomicMin, larger root under smaller, finds
 //     through L2 with path halving;
 //   C (finalize_kernel): each pixel takes a slot, a tile-local node of its
 //     component; the block reduces its pixels per slot in shared memory,
 //     one thread per slot finds the final root and adds the slot's total
 //     with one global atomic, and every pixel writes its final label.
-// 127 pixels are singletons: they take no union, and C writes their table
-// entry with a plain store.
+// 127 pixels are singletons: they take no union, and C writes their label
+// and table entry with plain stores. Finds and unions run in warp lockstep
+// (see warp_find).
 //
 // Edges. Pixel p unions with its left and up neighbours of equal value,
 // and a 255 pixel with its up-left and up-right 255 neighbours, less the
@@ -210,9 +213,9 @@ struct GlobalLabels {
 // lanes' finds and unions one group after another, which took most of
 // the tile phase's time.
 
-// The root of x for the active lanes; with kHalve, halving the path on
-// the way: each visited node's parent becomes its grandparent.
-template <int kPhase, bool kHalve = true, class Labels>
+// The root of x for the active lanes, halving the path on the way: each
+// visited node's parent becomes its grandparent.
+template <int kPhase, class Labels>
 __device__ __forceinline__ int warp_find(const Labels& L, int x,
                                          bool active) {
   unsigned hops = 0;
@@ -229,7 +232,7 @@ __device__ __forceinline__ int warp_find(const Labels& L, int x,
           x = p;
           go = false;
         } else {
-          if (kHalve) L.set(x, g);
+          L.set(x, g);
           x = g;
           ++hops;
         }

@@ -24,28 +24,14 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from ros_vision_tpu.apriltag.render import render_scene, simple_square_corners
 from ros_vision_tpu.ops import ccl as jccl
-from ros_vision_tpu.ops import threshold as jthr
 from ros_vision_tpu_torch.ops import ccl as tccl
 from ros_vision_tpu_torch.ops import ccl_kernel as ck
+from tests.test_torch_ccl import _scene, _threshim
 from tests.torch_port_helpers import checkerboard, n, random_threshim, t
 
 INT32_MAX = 2 ** 31 - 1
 BIG = 2 ** 30
-
-
-def _threshim(gray: np.ndarray) -> np.ndarray:
-    return np.asarray(jthr.adaptive_threshold(
-        jthr.decimate2(jnp.asarray(gray)))[0])
-
-
-def _scene() -> np.ndarray:
-    img, _ = render_scene(
-        [3, 9], [simple_square_corners(70, 60, 34),
-                 simple_square_corners(190, 90, 30, angle_deg=40)],
-        256, 160, noise_sigma=2.0, seed=5)
-    return _threshim(img[None])
 
 
 CASES = {
