@@ -67,6 +67,7 @@
 namespace rvt {
 namespace {   // internal linkage: included by several .cu files
 
+constexpr int kTileW = 128;                // tile columns (ccl_plan's TILE_W)
 constexpr int kTileItems = 8;              // pixels of a tile per thread
 static_assert(kTileItems * 4 <= 32, "phase A queues 4 edge bits a pixel");
 constexpr int kTileSmemLimit = 48 * 1024;  // a block's shared memory, no opt-in
@@ -133,19 +134,17 @@ struct TilePlan {
 };
 
 // The plan's layout for (b, h, w) frames: tiles that cover the frame
-// exactly once; tile_w 128 or 256 (the kernels are compiled for both, so
-// that their tile index arithmetic is shifts); a block's threads a
-// multiple of tile_w, so that each thread keeps one column of its tile and
-// a warp holds 32 pixels of one tile row; kTileItems pixels per thread;
-// one phase-B thread per pixel of a tile's border; phase C's tables in
-// shared memory within the default limit; grid sizes
-// within the device's; flat indices below 2^24 (phase C divides them by
-// w in float).
+// exactly once; tile_w kTileW (compiled in, so that the tile index
+// arithmetic is shifts); a block's threads a multiple of tile_w, so that
+// each thread keeps one column of its tile and a warp holds 32 pixels of
+// one tile row; kTileItems pixels per thread; one phase-B thread per
+// pixel of a tile's border; phase C's tables in shared memory within the
+// default limit; grid sizes within the device's; flat indices below 2^24
+// (phase C divides them by w in float).
 inline bool plan_ok(const TilePlan& p, int b, int h, int w) {
   const long long px = (long long)p.tile_h * p.tile_w;
   return h >= 1 && w >= 1 && (long long)h * w <= (1LL << 24) && b >= 1 &&
-         b <= 65535 && p.tile_h >= 1 &&
-         (p.tile_w == 128 || p.tile_w == 256) &&
+         b <= 65535 && p.tile_h >= 1 && p.tile_w == kTileW &&
          (long long)p.tiles_x * p.tile_w >= w &&
          (long long)(p.tiles_x - 1) * p.tile_w < w &&
          (long long)p.tiles_y * p.tile_h >= h &&
@@ -160,7 +159,6 @@ inline bool plan_ok(const TilePlan& p, int b, int h, int w) {
 
 // This block's tile: origin, real (ragged) size, and where this thread
 // sits in it: column lx of rows ly0 + k * rows, k < kTileItems.
-template <int kTileW>
 struct Tile {
   int y0, x0, rh, rw, lx, ly0, rows;
   __device__ Tile(int h, int w, int th)
@@ -191,8 +189,8 @@ __device__ __forceinline__ unsigned edge_mask(const Get& get, int y, int x) {
   return m;
 }
 
-// Loads and stores of the labels: shared memory in phase A, L2 in B and C
-// (other SMs change the global labels within the same launch).
+// Loads and stores of the forest: shared memory in phase A, L2 in B and C
+// (other SMs change the global forest within the same launch).
 struct SharedLabels {
   int* L;
   __device__ int get(int x) const { return ((volatile int*)L)[x]; }
@@ -274,14 +272,14 @@ __device__ __forceinline__ void warp_union(const Labels& L, bool want,
 // is the first pixel of its run of equal values among the warp's 32 (a
 // ballot). kMin: the table starts at INT_MAX (K6), else at 0 (K2). done,
 // when not null, gets 0 at [b] (a counter of a later K2 launch).
-template <bool kMin, int kTileW>
+template <bool kMin>
 __global__ void __launch_bounds__(1024)
     tile_label_kernel(const uint8_t* __restrict__ thr, int* forest,
                       int* table, int* done, int h, int w, int th) {
   extern __shared__ int smem[];
   int* sl = smem;
   uint8_t* si = reinterpret_cast<uint8_t*>(smem + th * kTileW);
-  const Tile<kTileW> tile(h, w, th);
+  const Tile tile(h, w, th);
   const size_t origin =
       (size_t)blockIdx.z * h * w + (size_t)tile.y0 * w + tile.x0;
   const uint8_t* t = thr + origin;
@@ -354,11 +352,10 @@ __global__ void __launch_bounds__(1024)
 
 // Phase B: the tile's top row, left column and right column, in that
 // order, one thread a pixel; each unions its edges that leave the tile.
-template <int kTileW>
 __global__ void __launch_bounds__(1024)
     border_merge_kernel(const uint8_t* __restrict__ thr, int* forest, int h,
                         int w, int th) {
-  const Tile<kTileW> tile(h, w, th);
+  const Tile tile(h, w, th);
   const size_t base = (size_t)blockIdx.z * h * w;
   const uint8_t* t = thr + base;
   const GlobalLabels L{forest + base};
@@ -401,7 +398,7 @@ __global__ void __launch_bounds__(1024)
 // for a tile-local root that B linked, an ancestor), else the pixel
 // itself: a node of its component either way. Each thread loads all its
 // pixels before it reduces any, so that their loads overlap.
-template <bool kMin, int kTileW>
+template <bool kMin>
 __global__ void __launch_bounds__(1024)
     finalize_kernel(const uint8_t* __restrict__ thr,
                     const int* __restrict__ values, int* forest,
@@ -409,7 +406,7 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ int smem[];
   int* sacc = smem;
   int* sfin = smem + th * kTileW;
-  const Tile<kTileW> tile(h, w, th);
+  const Tile tile(h, w, th);
   const size_t base = (size_t)blockIdx.z * h * w;
   const int gorigin = tile.y0 * w + tile.x0;
   const uint8_t* t = thr + base;
@@ -494,30 +491,6 @@ __global__ void __launch_bounds__(1024)
     if (q[k] >= 0) lab[px[k]] = sfin[q[k]];
 }
 
-template <bool kMin, int kTileW>
-cudaError_t launch_tiles(const uint8_t* thr, const int* values, int* forest,
-                         int* labels, int* table, int* done, int b, int h,
-                         int w,
-                         const TilePlan& plan, int* launches,
-                         cudaStream_t stream) {
-  const dim3 grid(plan.tiles_x, plan.tiles_y, b);
-  tile_label_kernel<kMin, kTileW><<<grid, plan.threads, plan.smem, stream>>>(
-      thr, forest, table, done, h, w, plan.tile_h);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ++*launches;
-  border_merge_kernel<kTileW><<<grid, plan.border_threads, 0, stream>>>(
-      thr, forest, h, w, plan.tile_h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ++*launches;
-  finalize_kernel<kMin, kTileW><<<grid, plan.threads, plan.smem, stream>>>(
-      thr, values, forest, labels, table, h, w, plan.tile_h);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) ++*launches;
-  return err;
-}
-
 // Phases A, B and C on `stream`: labels (B, h*w) of the (B, h, w)
 // threshold image and the table (B, h*w) at the roots (kMin: the minimum
 // of values, else sizes); forest (B, h*w) is the union-find's scratch.
@@ -528,12 +501,22 @@ cudaError_t label_tiles(const uint8_t* thr, const int* values, int* forest,
                         int* labels, int* table, int* done, int b, int h,
                         int w, const TilePlan& plan, int* launches,
                         cudaStream_t stream) {
-  return plan.tile_w == 256
-             ? launch_tiles<kMin, 256>(thr, values, forest, labels, table,
-                                       done, b, h, w, plan, launches, stream)
-             : launch_tiles<kMin, 128>(thr, values, forest, labels, table,
-                                       done, b, h, w, plan, launches,
-                                       stream);
+  const dim3 grid(plan.tiles_x, plan.tiles_y, b);
+  tile_label_kernel<kMin><<<grid, plan.threads, plan.smem, stream>>>(
+      thr, forest, table, done, h, w, plan.tile_h);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++*launches;
+  border_merge_kernel<<<grid, plan.border_threads, 0, stream>>>(
+      thr, forest, h, w, plan.tile_h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ++*launches;
+  finalize_kernel<kMin><<<grid, plan.threads, plan.smem, stream>>>(
+      thr, values, forest, labels, table, h, w, plan.tile_h);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
 
 }  // namespace

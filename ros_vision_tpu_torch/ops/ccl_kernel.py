@@ -23,7 +23,7 @@ histogram_launches = _build.counter("label_histogram")
 propagate_launches = _build.counter("propagate")
 
 TILE_H = 32                # rows of a tile (csrc/unionfind.cuh)
-TILE_W = 128               # columns of a tile: 128 or 256
+TILE_W = 128               # columns of a tile, compiled into the kernels
 TILE_ITEMS = 8             # a tile's pixels per thread in phases A and C
 TILE_SMEM_PER_PIXEL = 8    # phase C: a slot total and a final root
 SMEM_LIMIT = 48 * 1024     # a block's shared memory without opting in

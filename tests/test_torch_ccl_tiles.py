@@ -289,7 +289,7 @@ def test_ccl_plan_fits_the_launchers_layout(h, w):
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
     assert px == plan.threads * ck.TILE_ITEMS
     # a thread keeps one column of its tile, a warp 32 pixels of one row
-    assert plan.tile_w in (128, 256) and plan.threads % plan.tile_w == 0
+    assert plan.tile_w == 128 and plan.threads % plan.tile_w == 0
     assert plan.border_threads % 32 == 0 and plan.border_threads <= 1024
     # one phase-B thread per border pixel of a full tile
     assert plan.border_threads >= plan.tile_w + 2 * (plan.tile_h - 1)
