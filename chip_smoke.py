@@ -21,7 +21,13 @@ Phases, each of which raises (and so exits nonzero) on failure:
      which compares with device_ms. K1-K3 at the 1280x800 tag36h11
      path's shapes (the 4-tag bench scene at B=4 with four noise seeds,
      plus one cluttered frame that overflows both boundary caps) and
-     again at 1920x1080; K2 and K6 (the tiled union-find) also on
+     again at 1920x1080; K1 (one launch a call) also on a 1288x808 B=2
+     batch (W % 16 == 8) and a batch whose pointer is not 16-byte
+     aligned; K3 (one thread-block cluster launch a call) also on the
+     two ragged frames below with caps that overflow and caps that do
+     not; each K1 and K3 call checked to make its C launcher's one device
+     launch and repeated 10 times with identical outputs; K2 and K6 (the
+     tiled union-find) also on
      staircase (255 diagonals through the tiles' corners), spiral and comb
      planes at 640x400 and 960x540 and on two ragged frames, K6 with flat
      indices, the packed per-root table and random values, each call
@@ -57,8 +63,9 @@ K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
 Every path of phases 3-5 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
-On every path the device launches that the C launchers of K2, K4 and K6
-report equal their fixed number per call times the calls.
+On every path the device launches that the C launchers of K1, K2, K3, K4
+and K6 report equal their fixed number per call times the calls (K1 1,
+K2 6, K3 1, K4 1, K6 4).
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -191,13 +198,17 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
 
 
 def check_device_launches(what: str, counts: dict) -> None:
-    """The device launches that the C launchers of K2, K4 and K6 reported
-    over a path's run: their fixed number per call times the calls."""
+    """The device launches that the C launchers of K1, K2, K3, K4 and K6
+    reported over a path's run: their fixed number per call times the
+    calls."""
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
+    from ros_vision_tpu_torch.ops import threshold_kernel as tk
     kernels = _build.kernel_counts()
-    for name, per_call in (("rank_image", fk.RANK_LAUNCHES),
+    for name, per_call in (("adaptive_threshold", tk.LAUNCHES),
+                           ("rank_image", fk.RANK_LAUNCHES),
+                           ("boundary_compact", fk.BOUNDARY_LAUNCHES),
                            ("propagate_fixpoint", ck.FIXPOINT_LAUNCHES),
                            ("value_histogram", 1)):
         check(kernels[name] == per_call * counts[name],
@@ -411,10 +422,44 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
         idx = torch.arange(h * w, dtype=torch.int32, device=dev)
         return idx.view(1, h, w).expand(b, h, w).contiguous()
 
-    # K1, also at 1920x1080
-    err = max(max_abs_err("adaptive_threshold", tk.adaptive_threshold_fused(g),
-                          tk.adaptive_threshold_plain(g))
-              for g in (g4, gc, g2, gc2))
+    def device_launches(counter, call, want: int, what: str):
+        """call(), checking that its C launcher made `want` device
+        launches, and that REPEATS more calls (their atomics racing in
+        other orders) give the same outputs."""
+        before = counter.kernels
+        out = call()
+        made = counter.kernels - before
+        check(made == want, f"{what}: {made} device launches in one call, "
+              f"not {want}")
+        for _ in range(REPEATS):
+            again = call()
+            check(all(torch.equal(a, b) for a, b in zip(
+                (out,) if isinstance(out, torch.Tensor) else out,
+                (again,) if isinstance(again, torch.Tensor) else again)),
+                  f"{what}: a repeated call gave other outputs")
+        return out
+
+    # K1, also at 1920x1080, on a W % 16 == 8 batch (1288x808: a lone
+    # 8-byte load ends every row) and on a batch whose pointer is not
+    # 16-byte aligned (the kernel's byte loads)
+    rng = np.random.default_rng(3)
+    g_w8 = torch.from_numpy(np.stack([bench_scene(s, 1288, 808)[0]
+                                      for s in range(2)])).to(dev)
+    flat = torch.empty(g4.numel() + 8, dtype=torch.uint8, device=dev)
+    g_odd = flat[8:].view(g4.shape)
+    g_odd.copy_(g4.flip(2))
+    check(g_odd.data_ptr() % 16 == 8, "the unaligned K1 batch is aligned")
+    err = 0.0
+    for what, g in (("1280x800 bench B=4", g4), ("1280x800 clutter", gc),
+                    ("1920x1080 bench B=4", g2), ("1920x1080 clutter", gc2),
+                    ("1288x808 B=2", g_w8), ("1280x800 unaligned B=4", g_odd)):
+        got = device_launches(tk.launches,
+                              lambda: tk.adaptive_threshold_fused(g),
+                              tk.LAUNCHES, f"adaptive_threshold on {what}")
+        err = max(err, max_abs_err(f"adaptive_threshold on {what}", got,
+                                   tk.adaptive_threshold_plain(g)))
+    print(f"  adaptive_threshold: bit-exact on 6 batches, {tk.LAUNCHES} "
+          "device launch a call")
     record("adaptive_threshold", "threshold.cu",
            "ros_vision_tpu/ops/threshold_pallas.py:122", err,
            lambda: tk.adaptive_threshold_fused(g4),
@@ -440,23 +485,6 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
         ragged_planes(2, 541, 963)).to(dev)
     adversarial["ragged 53x37 B=3"] = torch.from_numpy(
         ragged_planes(3, 37, 53)).to(dev)
-
-    def device_launches(counter, call, want: int, what: str):
-        """call(), checking that its C launcher made `want` device
-        launches, and that REPEATS more calls (their atomics racing in
-        other orders) give the same outputs."""
-        before = counter.kernels
-        out = call()
-        made = counter.kernels - before
-        check(made == want, f"{what}: {made} device launches in one call, "
-              f"not {want}")
-        for _ in range(REPEATS):
-            again = call()
-            check(all(torch.equal(a, b) for a, b in zip(
-                (out,) if isinstance(out, torch.Tensor) else out,
-                (again,) if isinstance(again, torch.Tensor) else again)),
-                  f"{what}: a repeated call gave other outputs")
-        return out
 
     # K2 (labels, sizes and ranks; the clutter frame overflows the ranks)
     err = 0.0
@@ -489,19 +517,31 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
           "ccl.label_components does not return -2048 for the 2048th blob")
 
     # K3 (the bench scene and the clutter frame overflow the caps), also
-    # at 960x540 where the stage-A cap clamps to 80 rows
+    # at 960x540 where the stage-A cap clamps to 80 rows, and on the two
+    # ragged frames with the 1920x1080 caps (963x541 overflows both, 53x37
+    # neither) and with small caps (both overflow): one cluster launch a
+    # call, 10 repeated calls identical (slots cross the cluster's blocks)
+    ragged = [adversarial[f"ragged {what}"] for what in ("963x541 B=2",
+                                                         "53x37 B=3")]
+    cases = [(t4, r4, p_cap, k_cap), (tc, rc, p_cap, k_cap),
+             (t2, r2, p_cap2, k_cap2), (tc2, rc2, p_cap2, k_cap2)]
+    for t in ragged:
+        r = fk.label_components_plain(t)[2].view(t.shape)
+        cases += [(t, r, p_cap2, k_cap2), (t, r, 300, 400)]
     err = 0.0
-    for t, r, pc, kc in ((t4, r4, p_cap, k_cap), (tc, rc, p_cap, k_cap),
-                         (t2, r2, p_cap2, k_cap2), (tc2, rc2, p_cap2, k_cap2)):
-        key, pack2, counts = fk.boundary_compact(t, r, pc, kc)
+    for t, r, pc, kc in cases:
+        what = f"{t.shape[2]}x{t.shape[1]} B={t.shape[0]} caps {pc}/{kc}"
+        key, pack2, counts = device_launches(
+            fk.boundary_launches, lambda: fk.boundary_compact(t, r, pc, kc),
+            fk.BOUNDARY_LAUNCHES, f"boundary_compact on {what}")
         pts, cref = qf.boundary_points_capped(
             t, r.reshape(r.shape[0], -1), pc, kc)
-        err = max(err, max_abs_err("boundary_compact", (key, pack2, counts),
+        err = max(err, max_abs_err(f"boundary_compact on {what}",
+                                   (key, pack2, counts),
                                    (pts["key"], pts["pack2"], cref)))
         maskbits, _ = qf.boundary_masks(t, r)
         emitting = ((maskbits & 0xF) != 0).sum(dim=(1, 2)).tolist()
-        print(f"  boundary {t.shape[2]}x{t.shape[1]}: emitting px {emitting}"
-              f" (stage-A cap "
+        print(f"  boundary {what}: emitting px {emitting} (stage-A cap "
               f"{qf.boundary_block_rows(pc, t.shape[2]) * t.shape[2]}),"
               f" points {counts.tolist()} (cap {kc})")
     record("boundary_compact", "boundary.cu",
@@ -533,7 +573,6 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     # kernel launch a call), plus out-of-range values
     seg, peak = captured["1280x800 K=32768"]["hists"]
     seg2, peak2 = captured["1920x1080 K=131072"]["hists"]
-    rng = np.random.default_rng(3)
     odd = torch.from_numpy(rng.integers(-5, 1100, (4, 8192),
                                         dtype=np.int32)).to(dev)
     err = 0.0

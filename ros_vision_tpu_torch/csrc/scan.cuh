@@ -1,6 +1,6 @@
-// Block-level exclusive scan and the row-offset scan shared by ccl.cu and
-// boundary.cu. Hand-written (no cub): a warp shuffle scan, then a scan of
-// the warp totals in shared memory.
+// Block-level exclusive scan (ccl.cu, boundary.cu) and the row-offset
+// scan (ccl.cu). Hand-written (no cub): a warp shuffle scan, then a scan
+// of the warp totals in shared memory.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,12 +56,6 @@ __device__ void scan_row(int* c, int nblk) {
     carry += tot;
   }
   if (threadIdx.x == 0) c[nblk] = carry;
-}
-
-// One block per batch row: counts[b, 0..nblk) (row stride nblk + 1) become
-// their exclusive prefix, and counts[b, nblk] the row total.
-__global__ void scan_rows_kernel(int* counts, int nblk) {
-  scan_row(counts + (size_t)blockIdx.x * (nblk + 1), nblk);
 }
 
 }  // namespace

@@ -19,6 +19,7 @@ needs lane-aligned planes, and both compute one contract.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -29,6 +30,18 @@ from ros_vision_tpu_torch.ops import ccl, ccl_kernel, quadfit
 MIN_BLOB_PIXELS = 25
 _SCAN_TILE = 1024          # elements per scan block in csrc/scan.cuh
 RANK_LAUNCHES = 6          # device launches per K2 call (csrc/ccl.cu)
+BOUNDARY_LAUNCHES = 1      # device launches per K3 call (csrc/boundary.cu)
+# blocks per frame: past the portable 8, a non-portable cluster size the
+# H100 places (the launcher opts in); 16 keeps two staged byte planes of
+# the largest legal frame within a block's shared memory and halves the
+# per-block pixel work of 8
+BOUNDARY_CLUSTER = 16
+BOUNDARY_THREADS = 1024
+BOUNDARY_ITEMS = 4         # consecutive elements a thread takes
+STAGE_HALO = 1056          # staged threshold bytes past a block's pixels
+# dynamic shared memory a block may opt in to: the H100's 232,448 bytes
+# less 1 KB kept for the kernel's static shared memory (csrc/boundary.cu)
+SMEM_LIMIT = 232_448 - 1024
 
 rank_launches = _build.counter("rank_image")
 boundary_launches = _build.counter("boundary_compact")
@@ -89,29 +102,71 @@ def rank_image(threshim: torch.Tensor,
     return ranks.view(threshim.shape)
 
 
+@dataclass(frozen=True)
+class BoundaryPlan:
+    """How csrc/boundary.cu cuts a (B, h, w) batch: one cluster of
+    `cluster` blocks per frame, grid (cluster, B)."""
+    cluster: int
+    threads: int       # per block
+    span: int          # pixels a block owns (its bits in shared memory)
+    slice: int         # stage-A slots (pm) a block holds
+    smem_bytes: int    # dynamic shared memory per block
+
+    def args(self) -> tuple:
+        """The launcher's plan arguments, in their order."""
+        return (self.cluster, self.threads, self.span, self.slice,
+                self.smem_bytes)
+
+
+def boundary_plan(h: int, w: int, pc: int) -> BoundaryPlan:
+    """Clusters of BOUNDARY_CLUSTER blocks of 1024 threads; block r owns
+    pixels [r*span, (r+1)*span) and stage-A slots [r*slice, (r+1)*slice)
+    of its frame. Shared memory (csrc/boundary.cu smem_need): the pm
+    slice, one count per warp and chunk of threads * 4 elements for each
+    stage (four directions in stage B, whose share of the slots is at most
+    slice + 4), 8 totals, and the staged threshold bytes and (rank > 0)
+    bytes of the owned pixels and of the row below them (STAGE_HALO
+    more)."""
+    if h < 1 or w < 1 or 2 * w >= 2048 or 2 * h >= 2048:
+        raise ValueError(f"frame {h}x{w}: needs 1 to 1023 pixels a side "
+                         "(11-bit coordinates)")
+    if pc < 1:
+        raise ValueError(f"stage-A cap of {pc} slots")
+    c, threads = BOUNDARY_CLUSTER, BOUNDARY_THREADS
+    span = -(-(-(-h * w // c)) // 16) * 16
+    slc = -(-(-(-pc // c)) // 4) * 4
+    chunk, warps = threads * BOUNDARY_ITEMS, threads // 32
+    smem = 4 * (slc + -(-span // chunk) * warps
+                + 4 * -(-(slc + 4) // chunk) * warps + 8) \
+        + 2 * (span + STAGE_HALO)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"frame {h}x{w} with {pc} stage-A slots needs "
+                         f"{smem} bytes of shared memory a block, more "
+                         f"than {SMEM_LIMIT}")
+    return BoundaryPlan(cluster=c, threads=threads, span=span, slice=slc,
+                        smem_bytes=smem)
+
+
 def boundary_compact_cuda(threshim: torch.Tensor, ranks: torch.Tensor,
                           p_cap: int, k_cap: int):
     """Launch csrc/boundary.cu: ((B, k_cap) key, (B, k_cap) pack2,
     (B,) counts)."""
     b, h, w = threshim.shape
-    n = h * w
     dev = threshim.device
     _build.check_tensor(threshim, "threshim", torch.uint8, (b, h, w), dev)
     _build.check_tensor(ranks, "ranks", torch.int32, (b, h, w), dev)
-    if 2 * w >= 2048 or 2 * h >= 2048:
-        raise ValueError("image too large for 11-bit coordinates")
     pc = quadfit.boundary_block_rows(p_cap, w) * w
+    plan = boundary_plan(h, w, pc)
     i32 = dict(dtype=torch.int32, device=dev)
-    maskbits = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    pm = torch.empty((b, pc), **i32)
-    blk_a = torch.empty((b, -(-n // _SCAN_TILE) + 1), **i32)
-    blk_b = torch.empty((b, -(-4 * pc // _SCAN_TILE) + 1), **i32)
     key = torch.empty((b, k_cap), **i32)
     pack2 = torch.empty((b, k_cap), **i32)
     counts = torch.empty((b,), **i32)
-    _build.launch("rvt_boundary_compact", dev, threshim, ranks, maskbits, pm,
-                  blk_a, blk_b, key, pack2, counts, b, h, w, pc, k_cap)
+    made = ctypes.c_int(0)
+    _build.launch("rvt_boundary_compact", dev, threshim, ranks, key, pack2,
+                  counts, ctypes.addressof(made), b, h, w, pc, k_cap,
+                  *plan.args())
     boundary_launches.count += 1
+    boundary_launches.kernels += made.value
     return key, pack2, counts
 
 

@@ -101,7 +101,9 @@ class FrameRing:
     in-loop vs 3.3 ms on an idle host). Ownership contract: the producer
     must hand over the frame and never mutate it afterwards
     (cv2.VideoCapture.read() allocates a fresh buffer per frame; mock
-    factories return immutable scene arrays)."""
+    factories return immutable scene arrays). push() enforces it: the
+    pushed array is made read-only, so a producer that writes to it
+    afterwards raises instead of tearing a frame the consumer reads."""
 
     def __init__(self, frame_bytes: int, n_slots: int = 4,
                  force_python: bool = False, zero_copy: bool = False):
@@ -134,6 +136,7 @@ class FrameRing:
         native side by pointer: ctypes releases the GIL for the call, so
         the copy/convert runs concurrently with other capture threads."""
         if self.zero_copy:
+            frame.setflags(write=False)
             fid = self._zc_head
             # single tuple store: readers grab the whole triple atomically
             self._ref = (frame, fid, timestamp_ns or time.monotonic_ns())
@@ -183,10 +186,13 @@ class FrameRing:
             if fid == last_seen_id:
                 return None
             if frame.ndim == 3 and frame.shape[-1] == 3:
-                # straight into the caller's batch row when shapes line up
+                # straight into the caller's batch row when shapes line
+                # up and cvtColor can write there (a uint8, C-contiguous
+                # out; for any other it would write a buffer of its own)
                 if out is not None and out.ndim == 2 and \
                         out.shape == frame.shape[:2] and \
-                        frame.dtype == np.uint8 and _HAVE_CV2:
+                        out.dtype == np.uint8 and out.flags.c_contiguous \
+                        and frame.dtype == np.uint8 and _HAVE_CV2:
                     import cv2
                     cv2.cvtColor(np.ascontiguousarray(frame),
                                  cv2.COLOR_BGR2GRAY, dst=out)

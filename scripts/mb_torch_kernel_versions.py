@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K2 rank_image, K4 value_histogram, K6 propagate_fixpoint and K9
-sort_tpu of several checkouts of the port, timed on one CUDA card on the
-same inputs, the device time apart from the host's enqueue.
+"""K1 adaptive_threshold, K2 rank_image, K3 boundary_compact, K4
+value_histogram, K6 propagate_fixpoint and K9 sort_tpu of several
+checkouts of the port, timed on one CUDA card on the same inputs, the
+device time apart from the host's enqueue.
 
     python3 scripts/mb_torch_kernel_versions.py ROOT [ROOT ...]
 
@@ -14,7 +15,9 @@ segments at (4, 32768) (1280x800) and (4, 131072) (1920x1080), and the
 four sorts' operands at both widths; and the threshold planes of those
 batches and of the clutter frames, K2's at 640x400 and K6's at 960x540
 (with the flat pixel indices as values, as label_components_flood passes
-them). Then each ROOT, in the order given
+them); K1's gray frames (those batches and clutter frames) and K3's
+threshold planes, plain ranks and detector caps (K and the stage-A cap
+3K/4). Then each ROOT, in the order given
 (so "OLD . . OLD" takes them in turns), runs in a process of its own that
 imports that root's package, builds its kernels, checks every call
 bit-exact against the root's plain version and times it with
@@ -58,7 +61,8 @@ def capture() -> None:
     from ros_vision_tpu_torch.ops import threshold_kernel as tk
     cs = timing_helpers()
     dev = require_cuda()
-    saved = {"hist": {}, "sort": {}, "ccl": {}}
+    saved = {"hist": {}, "sort": {}, "ccl": {}, "threshold": {},
+             "boundary": {}}
     for label, k in SIZES.items():
         w, h, noise = ((cs.W, cs.H, 1.0) if k == 32768
                        else (cs.W2, cs.H2, cs.NOISE_1080))
@@ -72,6 +76,14 @@ def capture() -> None:
             kernel, tk.adaptive_threshold_plain(clutter.to(dev))[1].cpu())
         ranks = fk.label_components_plain(th)[2].view(th.shape)
         p_cap = qf.QuadFitConfig(max_points=k).max_boundary_pixels
+        th_c = tk.adaptive_threshold_plain(clutter.to(dev))[1]
+        saved["threshold"][f"{label} B=4 bench"] = g.cpu()
+        saved["threshold"][f"{label} B=1 clutter"] = clutter
+        saved["boundary"][f"{label} B=4 bench"] = (th.cpu(), ranks.cpu(),
+                                                   p_cap, k)
+        saved["boundary"][f"{label} B=1 clutter"] = (
+            th_c.cpu(), fk.label_components_plain(th_c)[2].view(
+                th_c.shape).cpu(), p_cap, k)
         key, pack2, _ = fk.boundary_compact(th, ranks, p_cap, k)
         calls = cs.capture_calls({"key": key, "pack2": pack2}, decim, k)
         at = f"{label} B=4 K={k}"
@@ -135,6 +147,25 @@ def time_root(root: Path) -> None:
         cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                  f"{root}: {kernel} differs at {at}")
         rows.append((kernel, at, cs.both_ms(run)))
+    from ros_vision_tpu_torch.ops import frontend_kernel as fk
+    from ros_vision_tpu_torch.ops import quadfit as qf
+    from ros_vision_tpu_torch.ops import threshold_kernel as tk
+    for at, g in saved["threshold"].items():
+        g = g.to(dev)
+        cs.max_abs_err(f"{root}: adaptive_threshold at {at}",
+                       tk.adaptive_threshold_fused(g),
+                       tk.adaptive_threshold_plain(g))
+        rows.append(("adaptive_threshold", at,
+                     cs.both_ms(lambda: tk.adaptive_threshold_fused(g))))
+    for at, (th, ranks, p_cap, k) in saved["boundary"].items():
+        th, ranks = th.to(dev), ranks.to(dev)
+        pts, counts = qf.boundary_points_capped(
+            th, ranks.reshape(th.shape[0], -1), p_cap, k)
+        cs.max_abs_err(f"{root}: boundary_compact at {at}",
+                       fk.boundary_compact(th, ranks, p_cap, k),
+                       (pts["key"], pts["pack2"], counts))
+        rows.append(("boundary_compact", at, cs.both_ms(
+            lambda: fk.boundary_compact(th, ranks, p_cap, k))))
     for kernel, at, t in rows:
         print(json.dumps(dict(root=str(root), kernel=kernel, at=at, **t)))
 

@@ -276,3 +276,66 @@ def test_chip_smoke_refuses_without_a_card():
     r = _run(["chip_smoke.py"], cwd=ROOT)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def _pipes(zero_copy: bool):
+    from ros_vision_tpu.runtime.frame_pipe import FramePipe as JPipe
+    from ros_vision_tpu_torch.runtime.frame_pipe import FramePipe as TPipe
+    return (JPipe(2, 8, 6, zero_copy=zero_copy),
+            TPipe(2, 8, 6, zero_copy=zero_copy))
+
+
+def test_frame_pipe_zero_copy_push_freezes_the_frame():
+    """The port's zero-copy push makes the pushed array read-only, so a
+    producer that mutates it raises instead of tearing the frame the
+    consumer converts; the JAX copy leaves it writable (a deliberate
+    divergence)."""
+    jpipe, tpipe = _pipes(zero_copy=True)
+    frames = [np.arange(48, dtype=np.uint8).reshape(8, 6) for _ in range(2)]
+    jpipe.push(0, frames[0])
+    tpipe.push(0, frames[1])
+    assert frames[0].flags.writeable
+    with pytest.raises(ValueError):
+        frames[1][0, 0] = 1
+    batch, ids, _ = tpipe.pull_batch()
+    assert ids == [0, -1]
+    np.testing.assert_array_equal(batch[0], frames[0])
+
+
+@pytest.mark.parametrize("kind", ["float", "strided"])
+def test_frame_ring_latest_into_an_unfit_out(kind):
+    """latest(out=...) with an `out` that cvtColor cannot write in place
+    (float, or not C-contiguous) returns the converted frame, not the
+    stale contents of `out`."""
+    from ros_vision_tpu_torch.runtime.frame_pipe import (FrameRing,
+                                                         bgr_to_gray)
+    bgr = np.random.default_rng(3).integers(0, 256, (8, 6, 3),
+                                            dtype=np.uint8)
+    ring = FrameRing(48, zero_copy=True)
+    ring.push(bgr)
+    out = (np.full((8, 6), -1.0, np.float32) if kind == "float"
+           else np.zeros((8, 12), np.uint8)[:, ::2])
+    assert out.shape == (8, 6)
+    got, fid, _ = ring.latest(out=out)
+    assert fid == 0
+    np.testing.assert_array_equal(np.asarray(got).reshape(8, 6),
+                                  bgr_to_gray(bgr))
+
+
+@pytest.mark.parametrize("zero_copy", [False, True])
+def test_frame_pipe_copy_matches_on_ordinary_frames(zero_copy):
+    """On gray and BGR uint8 frames the port's FramePipe returns what the
+    JAX FramePipe returns."""
+    rng = np.random.default_rng(8)
+    gray = rng.integers(0, 256, (8, 6), dtype=np.uint8)
+    bgr = rng.integers(0, 256, (8, 6, 3), dtype=np.uint8)
+    outs = []
+    for pipe in _pipes(zero_copy):
+        pipe.push(0, gray.copy(), timestamp_ns=5)
+        pipe.push(1, bgr.copy(), timestamp_ns=7)
+        first = pipe.pull_batch()
+        pipe.push(1, bgr[::-1].copy(), timestamp_ns=9)
+        outs.append((first, pipe.pull_batch(wait_new=True, timeout_s=0.01)))
+    for (a, b) in zip(*outs):
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1:] == b[1:]
