@@ -53,6 +53,41 @@
 
 #include "unionfind.cuh"
 
+// -DRVT_HIST_COUNT_ATOMICS (a counting build, off by default; see
+// scripts/mb_torch_flood_phases.py): every global atomicAdd of K7 also
+// adds one to its address's count, and rvt_label_histogram_atomics(out)
+// returns the atomics, the most on one address and the addresses hit
+// since the last read (labels of up to kHitSlots keys).
+#ifdef RVT_HIST_COUNT_ATOMICS
+constexpr int kHitSlots = 1 << 22;
+__device__ unsigned g_hist_hits[kHitSlots];
+__device__ __forceinline__ void count_atomic(int key) {
+  if (key < kHitSlots) atomicAdd(&g_hist_hits[key], 1u);
+}
+extern "C" int rvt_label_histogram_atomics(unsigned long long* out) {
+  unsigned* hits = new unsigned[kHitSlots];
+  cudaError_t e = cudaMemcpyFromSymbol(hits, g_hist_hits,
+                                       sizeof(unsigned) * kHitSlots);
+  unsigned long long total = 0, most = 0, addresses = 0;
+  for (int i = 0; i < kHitSlots && e == cudaSuccess; ++i) {
+    total += hits[i];
+    most = hits[i] > most ? hits[i] : most;
+    addresses += hits[i] != 0;
+  }
+  delete[] hits;
+  out[0] = total;
+  out[1] = most;
+  out[2] = addresses;
+  void* sym = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&sym, g_hist_hits);
+  if (e == cudaSuccess) e = cudaMemset(sym, 0, sizeof(unsigned) * kHitSlots);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+#else
+__device__ __forceinline__ void count_atomic(int) {}
+#endif
+
 namespace {
 
 constexpr int kBig = 1 << 30;          // ccl_pallas._BIG
@@ -77,8 +112,10 @@ __global__ void label_hist_kernel(const int* __restrict__ labels,
   const bool in = lab >= 0 && lab < n;
   const int key = in ? (i / n) * n + lab : -1;
   const unsigned peers = __match_any_sync(0xffffffffu, key);
-  if (in && (threadIdx.x & 31) == __ffs(peers) - 1)
+  if (in && (threadIdx.x & 31) == __ffs(peers) - 1) {
     atomicAdd(counts + key, __popc(peers));
+    count_atomic(key);
+  }
 }
 
 // bit k of mask[b, p]: neighbour k of p is in the frame and connected to p
