@@ -41,9 +41,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
      payload (num_keys < operands) and K=200000 rows, bit-exact against
      the network's plain version (payload order included), one kernel
      launch a call up to N = 131,072; K6, K7 and K12 at 1920x1080 (bench
-     scene B=4 and a cluttered frame past the 2048-blob rank space); K8
-     at 1280x800 B=4 with 448, 0 and 1 sweeps; K10 at B=4 S=1025 C=4
-     K=32768; K11 at B=4 K=131072 S=1025;
+     scene B=4 and a cluttered frame past the 2048-blob rank space), K7
+     (one cooperative launch a call) on the bench, clutter and random
+     labels and an unaligned batch; K8 (one launch a round of
+     PROPAGATE_HALO sweeps kept in shared memory) at 1280x800 B=4, on the
+     union-find planes and ragged frames and on a plane with values
+     outside {0, 127, 255} (the kernel's masked path) with 0, 1, T, T+1 and 448
+     sweeps (T = PROPAGATE_HALO), each K7 and K8 call checked to make its
+     C launcher's device launches and repeated 10 times with identical
+     outputs; K10 at B=4 S=1025 C=4 K=32768; K11 at B=4 K=131072 S=1025;
   3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
      on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
      every row, corners within 0.1 px of the same detector's plain path on
@@ -63,9 +69,10 @@ K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
 Every path of phases 3-5 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
-On every path the device launches that the C launchers of K1, K2, K3, K4
-and K6 report equal their fixed number per call times the calls (K1 1,
-K2 6, K3 1, K4 1, K6 4).
+On every path the device launches that the C launchers of K1, K2, K3, K4,
+K6 and K7 report equal their fixed number per call times the calls (K1 1,
+K2 6, K3 1, K4 1, K6 4, K7 1), and K8's equal its plan's (one a round of
+PROPAGATE_HALO sweeps) summed over its calls.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -90,12 +97,16 @@ W2, H2 = 1920, 1080
 # JAX detector finds none of the tags there; sigma 0.75 keeps all four.
 NOISE_1080 = 0.75
 REPS = 20
-REPEATS = 10      # repeated calls of K2 and K6 on each plane, compared
+REPEATS = 10      # repeated calls of a kernel on each input, compared
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes per second and float32 operations per second outside the tensor
 # cores (the rate bound_ms uses for the integer and float work here)
 HBM_BYTES_S = 3.35e12
 CORE_OPS_S = 67e12
+# the INT32 pipe's rate, where integer min and select run: 64 lanes an SM
+# a clock on 132 SMs at the 1.98 GHz boost clock (a second figure for K8's
+# bound, printed beside bound_ms)
+INT32_OPS_S = 64 * 132 * 1.98e9
 # kernels each path must launch; every other kernel must not launch there
 PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
             "value_histogram"}
@@ -197,10 +208,11 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
           f"{counts}")
 
 
-def check_device_launches(what: str, counts: dict) -> None:
-    """The device launches that the C launchers of K1, K2, K3, K4 and K6
-    reported over a path's run: their fixed number per call times the
-    calls."""
+def check_device_launches(what: str, counts: dict,
+                          propagate: int = 0) -> None:
+    """The device launches that the C launchers of K1, K2, K3, K4, K6 and
+    K7 reported over a path's run: their fixed number per call times the
+    calls; and K8's: `propagate`, the sum of its calls' plans."""
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
@@ -210,10 +222,14 @@ def check_device_launches(what: str, counts: dict) -> None:
                            ("rank_image", fk.RANK_LAUNCHES),
                            ("boundary_compact", fk.BOUNDARY_LAUNCHES),
                            ("propagate_fixpoint", ck.FIXPOINT_LAUNCHES),
+                           ("label_histogram", ck.HISTOGRAM_LAUNCHES),
                            ("value_histogram", 1)):
         check(kernels[name] == per_call * counts[name],
               f"{what}: {name} made {kernels[name]} device launches in "
               f"{counts[name]} calls, not {per_call} each")
+    check(kernels["propagate"] == propagate,
+          f"{what}: propagate made {kernels['propagate']} device launches, "
+          f"not its plans' {propagate}")
 
 
 def call_ms(fn, reps: int = REPS) -> float:
@@ -636,21 +652,50 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            lambda: ccl.propagate_fixpoint(t2, init2), "1920x1080 B=4",
            [t2, init2])
 
-    # K7 on converged labels and on random labels, some outside [0, N)
+    # K7 on converged labels (bench B=4, clutter B=1 and B=4), on random
+    # labels, some outside [0, N), and on a batch whose pointer is not
+    # 16-byte aligned: one cooperative launch a call, 10 repeated calls
+    # identical
     rnd = rng.integers(-1000, n2 + 5000, (4, n2)).astype(np.int32)
     rnd[:, :3] = [-1, n2, 2 ** 31 - 1]
     rnd = torch.from_numpy(rnd).to(dev)
-    err = max(max_abs_err("label_histogram", (ck.label_histogram(v),),
-                          (ccl.label_histogram(v),))
-              for v in (lab2, labc2, rnd))
+    clutter4 = torch.from_numpy(np.stack([
+        clutter_frame(s, W2, H2) for s in range(7, 11)])).to(dev)
+    labc4 = ccl.propagate_fixpoint(
+        tk.adaptive_threshold_plain(clutter4)[1], flat_init(t2)).view(4, n2)
+    unaligned = torch.empty(4 * n2 + 1, dtype=torch.int32, device=dev)
+    unaligned = unaligned[1:].view(4, n2)
+    unaligned.copy_(lab2)
+    err = 0.0
+    for what, v in (("bench labels B=4", lab2), ("clutter labels B=1", labc2),
+                    ("clutter labels B=4", labc4), ("random labels", rnd),
+                    ("unaligned bench labels", unaligned)):
+        got = device_launches(ck.histogram_launches,
+                              lambda: ck.label_histogram(v),
+                              ck.HISTOGRAM_LAUNCHES,
+                              f"label_histogram on {what}")
+        err = max(err, max_abs_err(f"label_histogram on {what}", (got,),
+                                   (ccl.label_histogram(v),)))
+    print(f"  label_histogram: bit-exact on 5 label sets, "
+          f"{ck.HISTOGRAM_LAUNCHES} device launch a call")
     lab2_64 = lab2.to(torch.int64)
     ones2 = torch.ones_like(lab2)
     lhist_out = torch.zeros_like(lab2)
+    labc4_64 = labc4.to(torch.int64)
     record("label_histogram", "flood.cu",
            "ros_vision_tpu/ops/ccl_pallas.py:376", err,
            lambda: ck.label_histogram(lab2),
            lambda: ccl.label_histogram(lab2), "1920x1080 B=4", [lab2],
-           library=lambda: lhist_out.scatter_add_(1, lab2_64, ones2))
+           library=lambda: lhist_out.scatter_add_(1, lab2_64, ones2),
+           also=[shape_entry(
+               "1920x1080 B=4 clutter labels",
+               lambda: ck.label_histogram(labc4),
+               lambda: ccl.label_histogram(labc4), [labc4],
+               library=lambda: lhist_out.scatter_add_(1, labc4_64, ones2)),
+                 shape_entry(
+               "1920x1080 B=4 random labels",
+               lambda: ck.label_histogram(rnd),
+               lambda: ccl.label_histogram(rnd), [rnd])])
 
     # K12 at n = 518,400: the rank table of the bench labels, and random
     # labels (some outside [0, N)) over a random table
@@ -667,17 +712,54 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            [lab2, rank_v2],
            library=lambda: torch.gather(rank_v2, 1, lab2_64))
 
-    # K8 at 1280x800 B=4: the hybrid CCL's first round (448 sweeps), 0, 1;
-    # its least work is 8 neighbour mins per pixel per sweep
+    # K8 at 1280x800 B=4 (flat indices and random values), on the
+    # union-find planes, the ragged frames and a plane with other values
+    # than the threshold's (flat indices), with the hybrid
+    # CCL's first round (448 sweeps), 0, 1, T and T + 1 sweeps (T sweeps a
+    # launch); each call makes its plan's launches, 10 repeated calls
+    # identical; its least work is 8 neighbour mins per pixel per sweep
     init4 = flat_init(t4)
-    err = max(max_abs_err("propagate", (ck.propagate(t4, init4, k),),
-                          (ccl.propagate(t4, init4, k),))
-              for k in (448, 0, 1))
+    vals4 = rng.integers(-5, 2 ** 31 - 1, t4.shape, dtype=np.int64)
+    vals4.reshape(-1)[:2] = [2 ** 31 - 1, 2 ** 30]
+    vals4 = torch.from_numpy(vals4.astype(np.int32)).to(dev)
+    cases = [("bench 640x400 B=4, flat indices", t4, init4),
+             ("bench 640x400 B=4, random values", t4, vals4)]
+    cases += [(f"{what}, flat indices", t, flat_init(t))
+              for what, t in adversarial.items()]
+    # a patch of values outside {0, 127, 255}: the tiles that see it take
+    # the kernel's masked path, the others its two planes
+    mixed = ragged_planes(2, H // 2, W // 2, seed=3)
+    y, x = H // 8, W // 6
+    mixed[:, y:y + 40, x:x + 60] = rng.choice([5, 200, 0, 255], (2, 40, 60))
+    mixed = torch.from_numpy(mixed).to(dev)
+    cases.append(("640x400 B=2, values outside {0, 127, 255}", mixed,
+                  flat_init(mixed)))
+    halo = ck.PROPAGATE_HALO
+    err = 0.0
+    for what, t, v in cases:
+        for k in (0, 1, halo, halo + 1, 448):
+            plan = ck.propagate_plan(t.shape[1], t.shape[2], k)
+            check(plan.launches <= -(-k // halo) + 1,
+                  f"propagate plan of {plan.launches} launches for {k}")
+            got = device_launches(ck.propagate_launches,
+                                  lambda: ck.propagate(t, v, k),
+                                  plan.launches,
+                                  f"propagate on {what}, {k} sweeps")
+            err = max(err, max_abs_err(f"propagate on {what}, {k} sweeps",
+                                       (got,), (ccl.propagate(t, v, k),)))
+    print(f"  propagate: bit-exact on {len(cases)} planes at 0, 1, {halo}, "
+          f"{halo + 1} and 448 sweeps, ceil(n / {halo}) device launches a "
+          f"call ({ck.propagate_plan(H // 2, W // 2, 448).launches} at 448)")
+    ops8 = 448 * 8 * t4.numel()
+    print(f"  propagate: its 448 sweeps' {ops8} neighbour mins take "
+          f"{ops8 / INT32_OPS_S * 1e3:.4f} ms at the INT32 pipe's "
+          f"{INT32_OPS_S / 1e12:.2f} T/s (bound_ms takes "
+          f"{CORE_OPS_S / 1e12:.0f})")
     record("propagate", "flood.cu",
            "ros_vision_tpu/ops/ccl_pallas.py:405", err,
            lambda: ck.propagate(t4, init4, 448),
            lambda: ccl.propagate(t4, init4, 448), "1280x800 B=4, 448 sweeps",
-           [t4, init4], ops=448 * 8 * t4.numel())
+           [t4, init4], ops=ops8)
 
     # K9 on the operands of cluster_and_fit's four sorts, at each width:
     # bit-exact against the network's plain version, one kernel launch a
@@ -994,8 +1076,10 @@ def ccl_paths_phase(t4, t2):
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.device import HostSyncs
     from ros_vision_tpu_torch.ops import ccl
+    from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
 
+    _, h4, w4 = t4.shape
     paths = {
         "label_components_hybrid (1280x800 B=4)":
             (lambda syncs: ccl.label_components_hybrid(t4, syncs=syncs),
@@ -1021,7 +1105,11 @@ def ccl_paths_phase(t4, t2):
         counts = _build.counts()
         max_abs_err(name, got, plain())
         check_kernel_set(name, counts, must)
-        check_device_launches(name, counts)
+        # the hybrid's first round sweeps 448 times, every later one 64
+        rounds = counts["propagate"]
+        check_device_launches(name, counts, propagate=0 if not rounds else (
+            ck.propagate_plan(h4, w4, 448).launches
+            + (rounds - 1) * ck.propagate_plan(h4, w4, 64).launches))
         print(f"  {name}: bit-exact vs the plain CCL; {ms:.3f} ms (one "
               f"call, host clock incl. sync), {syncs.count} host syncs; "
               f"launches {counts}")

@@ -52,10 +52,11 @@ _SIGNATURES = {
     # threshim, values, labels, rootmin, out, launches, b, h, w, tile_h,
     # tile_w, tiles_x, tiles_y, threads, border_threads, smem
     "rvt_propagate_fixpoint": [_P] * 6 + [_I] * 10,
-    # labels, counts, b, n
-    "rvt_label_histogram": [_P] * 2 + [_I] * 2,
-    # threshim, labels, mask, scratch, out, b, h, w, n_sweeps
-    "rvt_propagate": [_P] * 5 + [_I] * 4,
+    # labels, counts, launches, b, n
+    "rvt_label_histogram": [_P] * 3 + [_I] * 2,
+    # threshim, labels, scratch, out, launches, b, h, w, n_sweeps, tile_h,
+    # tile_w, halo, tiles_x, tiles_y, threads, smem
+    "rvt_propagate": [_P] * 5 + [_I] * 11,
     # labels, rank_v, out, b, n
     "rvt_rank_gather": [_P] * 3 + [_I] * 2,
     # in0..2, work0..2, out0..2, launches, b, k, n, nops, nkeys, tile,
@@ -159,7 +160,7 @@ class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
     else, so a run can show that the main path went through the kernel.
     `kernels` sums the device kernel launches that C launchers which
-    report them (K1-K4, K6, K9) made for those calls."""
+    report them (K1-K4, K6-K9) made for those calls."""
 
     def __init__(self, name: str):
         self.name = name

@@ -30,6 +30,12 @@ SMEM_LIMIT = 48 * 1024     # a block's shared memory without opting in
 MAX_GRID_YZ = 65535
 MAX_FRAME_PIXELS = 1 << 24  # phase C divides flat indices by w in float
 FIXPOINT_LAUNCHES = 4      # device launches per K6 call (csrc/flood.cu)
+HISTOGRAM_LAUNCHES = 1     # device launches per K7 call (csrc/flood.cu)
+PROPAGATE_TILE_H = 80      # K8: rows of a tile's interior
+PROPAGATE_TILE_W = 112     # K8: columns of a tile's interior
+PROPAGATE_HALO = 8         # K8: sweeps a launch, and the halo on each side
+PROPAGATE_ROWS = 12        # K8: rows a thread, compiled into csrc/flood.cu
+PROPAGATE_THREADS = 1024   # K8: threads a block, compiled in as well
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +75,63 @@ def ccl_plan(h: int, w: int) -> CclPlan:
                    smem_bytes=TILE_SMEM_PER_PIXEL * TILE_H * TILE_W)
 
 
+@dataclasses.dataclass(frozen=True)
+class PropagatePlan:
+    """How csrc/flood.cu runs K8 on (B, h, w) frames: `rounds` launches of
+    at most `halo` sweeps (the copy for 0 sweeps), each over a grid
+    (tiles_x, tiles_y, B) of blocks, one a tile of tile_h x tile_w pixels
+    kept in shared memory with a halo of `halo` pixels on each side."""
+    tile_h: int
+    tile_w: int
+    halo: int
+    tiles_x: int
+    tiles_y: int
+    rounds: int
+    threads: int
+    smem_bytes: int   # two buffers of 8 B a cell and the threshold
+
+    @property
+    def launches(self) -> int:
+        """Device launches a call (the copy for 0 sweeps counts one)."""
+        return max(1, self.rounds)
+
+    def args(self) -> tuple:
+        """The launcher's plan arguments, in their order."""
+        return (self.tile_h, self.tile_w, self.halo, self.tiles_x,
+                self.tiles_y, self.threads, self.smem_bytes)
+
+
+def propagate_cells(tile_h: int, tile_w: int, halo: int) -> int:
+    """Cells a block keeps in shared memory (csrc/flood.cu Region): the
+    tile, the halo and a ring of one cell."""
+    return (tile_h + 2 * halo + 2) * (tile_w + 2 * halo + 2)
+
+
+def propagate_plan(h: int, w: int, n_sweeps: int) -> PropagatePlan:
+    """Tiles of 80 x 112 pixels (the last row and column of tiles ragged)
+    with a halo of 8: a region of 96 x 128, 1024 threads of 12 rows of one
+    column each, and 8 sweeps a launch. The halo's cost grows with the
+    sweeps a launch (1.37x the tile's pixels here) and the launches
+    shrink with them; at 640x400 B=4 the frames are 120 tiles, one wave
+    on 132 SMs (a block's 216,592 bytes of shared memory leave one an
+    SM)."""
+    if h < 1 or w < 1:
+        raise ValueError(f"frames of {h}x{w} pixels cannot be swept")
+    if n_sweeps < 0:
+        raise ValueError(f"n_sweeps must be >= 0, got {n_sweeps}")
+    tiles_y = -(-h // PROPAGATE_TILE_H)
+    if tiles_y > MAX_GRID_YZ:
+        raise ValueError(f"{h} rows need {tiles_y} tile rows, more than "
+                         f"the grid's {MAX_GRID_YZ}")
+    halo = PROPAGATE_HALO
+    cells = propagate_cells(PROPAGATE_TILE_H, PROPAGATE_TILE_W, halo)
+    return PropagatePlan(
+        tile_h=PROPAGATE_TILE_H, tile_w=PROPAGATE_TILE_W, halo=halo,
+        tiles_x=-(-w // PROPAGATE_TILE_W), tiles_y=tiles_y,
+        rounds=-(-n_sweeps // halo), threads=PROPAGATE_THREADS,
+        smem_bytes=2 * 8 * cells + -(-cells // 16) * 16)
+
+
 def _propagate_fixpoint_cuda(threshim: torch.Tensor,
                              values: torch.Tensor) -> torch.Tensor:
     b, h, w = threshim.shape
@@ -103,8 +166,11 @@ def _label_histogram_cuda(labels_flat: torch.Tensor) -> torch.Tensor:
     dev = labels_flat.device
     _build.check_tensor(labels_flat, "labels_flat", torch.int32, (b, n), dev)
     counts = torch.empty((b, n), dtype=torch.int32, device=dev)
-    _build.launch("rvt_label_histogram", dev, labels_flat, counts, b, n)
+    made = ctypes.c_int(0)
+    _build.launch("rvt_label_histogram", dev, labels_flat, counts,
+                  ctypes.addressof(made), b, n)
     histogram_launches.count += 1
+    histogram_launches.kernels += made.value
     return counts
 
 
@@ -122,12 +188,14 @@ def _propagate_cuda(threshim: torch.Tensor, labels: torch.Tensor,
     dev = threshim.device
     _build.check_tensor(threshim, "threshim", torch.uint8, (b, h, w), dev)
     _build.check_tensor(labels, "labels", torch.int32, (b, h, w), dev)
-    mask = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    plan = propagate_plan(h, w, n_sweeps)
     out = torch.empty((b, h, w), dtype=torch.int32, device=dev)
-    _build.launch("rvt_propagate", dev, threshim, labels, mask, scratch, out,
-                  b, h, w, n_sweeps)
+    scratch = torch.empty_like(out) if plan.rounds > 1 else None
+    made = ctypes.c_int(0)
+    _build.launch("rvt_propagate", dev, threshim, labels, scratch, out,
+                  ctypes.addressof(made), b, h, w, n_sweeps, *plan.args())
     propagate_launches.count += 1
+    propagate_launches.kernels += made.value
     return out
 
 

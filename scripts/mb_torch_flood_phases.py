@@ -24,7 +24,14 @@ that root's package and, for each input:
 - where the root's csrc/flood.cu has the RVT_HIST_COUNT_ATOMICS build
   flag, builds the kernels again with it (a library of its own under
   build/) and reports K7's global atomics per call, the most on one
-  address and the addresses hit.
+  address and the addresses hit;
+- where it has RVT_FLOOD_PHASE_CLOCKS, builds them again with that and
+  reports the cycles per block and launch in each phase -- K7: its
+  chunks, the wait at the grid barrier, the far runs; K8: the load of the
+  region, the sweeps, the write-back -- and
+  the span of the call from its first block's start to its last block's
+  end on the global timer. Neither counting build's kernel time is
+  reported: their own atomics perturb it.
 
 Prints one JSON line per root, kernel and input, then the card's name and
 power limit; exits nonzero without a card or if a kernel disagrees.
@@ -41,6 +48,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 INPUTS = ROOT / "build" / "mb_torch_flood_phases" / "inputs.pt"
 COUNT_FLAG = "RVT_HIST_COUNT_ATOMICS"
+CLOCK_FLAG = "RVT_FLOOD_PHASE_CLOCKS"
 SWEEPS = 448
 
 
@@ -174,21 +182,61 @@ def atomics_root(root: Path) -> None:
             addresses=addresses, labels=x.numel())), flush=True)
 
 
+def clocks_root(root: Path) -> None:
+    """Cycles per block by phase of root's K7 and K8 from a build with
+    -DRVT_FLOOD_PHASE_CLOCKS."""
+    sys.path.insert(0, str(root))
+    import torch
+    from ros_vision_tpu_torch import _build
+    _build.LIBRARY = _build.KernelLibrary(
+        flags=_build.NVCC_FLAGS + (f"-D{CLOCK_FLAG}",))
+    _build._FUNCS.clear()
+    read = _build.LIBRARY.get().rvt_flood_clocks
+    read.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * 12)()
+    dev = torch.device("cuda", 0)
+    phases = {"label_histogram": (0, ("chunks", "barrier_wait",
+                                      "far_runs")),
+              "propagate": (1, ("load", "sweeps", "write_back"))}
+    for kernel, inputs in torch.load(INPUTS).items():
+        at_set, names = phases[kernel]
+        for at, x in inputs.items():
+            run, _ = calls_of(kernel, x, dev)
+            run()
+            torch.cuda.synchronize()
+            read(ctypes.addressof(buf))                  # zero the clocks
+            run()
+            torch.cuda.synchronize()
+            if read(ctypes.addressof(buf)) != 0:
+                raise RuntimeError("reading the clocks failed")
+            sums = list(buf)[6 * at_set:6 * at_set + 6]
+            blocks = sums[3]
+            print(json.dumps(dict(
+                root=str(root), kernel=kernel, at=at, block_launches=blocks,
+                cycles_per_block={k: v / blocks
+                                  for k, v in zip(names, sums[:3])},
+                span_ms=(sums[5] - sums[4]) / 1e6)), flush=True)
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--capture"]:
         capture()
         return 0
-    if argv[:1] in (["--time"], ["--atomics"]):
-        (time_root if argv[0] == "--time" else atomics_root)(Path(argv[1]))
+    modes = {"--time": time_root, "--atomics": atomics_root,
+             "--clocks": clocks_root}
+    if argv[:1] and argv[0] in modes:
+        modes[argv[0]](Path(argv[1]))
         return 0
     me = [sys.executable, str(Path(__file__).resolve())]
     subprocess.run(me + ["--capture"], check=True)
     for root in argv or ["."]:
-        modes = ["--time"]
+        todo = ["--time"]
         src = Path(root) / "ros_vision_tpu_torch" / "csrc" / "flood.cu"
-        if COUNT_FLAG in src.read_text():
-            modes.append("--atomics")
-        for mode in modes:
+        text = src.read_text()
+        todo += [m for m, flag in (("--atomics", COUNT_FLAG),
+                                    ("--clocks", CLOCK_FLAG))
+                  if flag in text]
+        for mode in todo:
             run = subprocess.run(me + [mode, root], capture_output=True,
                                  text=True)
             sys.stdout.write(run.stdout)

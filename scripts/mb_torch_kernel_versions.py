@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """K1 adaptive_threshold, K2 rank_image, K3 boundary_compact, K4
-value_histogram, K6 propagate_fixpoint and K9 sort_tpu of several
-checkouts of the port, timed on one CUDA card on the same inputs, the
-device time apart from the host's enqueue.
+value_histogram, K6 propagate_fixpoint, K7 label_histogram, K8 propagate
+and K9 sort_tpu of several checkouts of the port, timed on one CUDA card
+on the same inputs, the device time apart from the host's enqueue.
 
     python3 scripts/mb_torch_kernel_versions.py ROOT [ROOT ...]
 
@@ -17,7 +17,11 @@ batches and of the clutter frames, K2's at 640x400 and K6's at 960x540
 (with the flat pixel indices as values, as label_components_flood passes
 them); K1's gray frames (those batches and clutter frames) and K3's
 threshold planes, plain ranks and detector caps (K and the stage-A cap
-3K/4). Then each ROOT, in the order given
+3K/4); K7's (4, 518400) labels at 960x540 (the converged flood labels
+of the 1920x1080 bench batch and of four clutter frames, and random
+labels with some outside [0, N)) and K8's 640x400 planes (the 1280x800
+bench batch and four spiral planes, flat indices, 448 sweeps). Then each
+ROOT, in the order given
 (so "OLD . . OLD" takes them in turns), runs in a process of its own that
 imports that root's package, builds its kernels, checks every call
 bit-exact against the root's plain version and times it with
@@ -62,7 +66,7 @@ def capture() -> None:
     cs = timing_helpers()
     dev = require_cuda()
     saved = {"hist": {}, "sort": {}, "ccl": {}, "threshold": {},
-             "boundary": {}}
+             "boundary": {}, "flood": {}}
     for label, k in SIZES.items():
         w, h, noise = ((cs.W, cs.H, 1.0) if k == 32768
                        else (cs.W2, cs.H2, cs.NOISE_1080))
@@ -91,6 +95,37 @@ def capture() -> None:
         saved["hist"][f"{at} (peak segments)"] = calls["hists"][1].cpu()
         saved["sort"][at] = [([o.cpu() for o in ops], nk)
                              for ops, nk in calls["sorts"]]
+    from ros_vision_tpu_torch.ops import ccl
+
+    def converged(th):
+        b, h, w = th.shape
+        flat = torch.arange(h * w, dtype=torch.int32, device=dev)
+        flat = flat.view(1, h, w).expand(b, h, w).contiguous()
+        return ccl.propagate_fixpoint(th, flat).view(b, -1).cpu()
+
+    def thresh(gray):
+        return tk.adaptive_threshold_plain(torch.from_numpy(
+            np.ascontiguousarray(gray)).to(dev))[1]
+
+    bench = thresh(np.stack([cs.bench_scene(s, cs.W2, cs.H2,
+                                            cs.NOISE_1080)[0]
+                             for s in range(4)]))
+    clutter = thresh(np.stack([cs.clutter_frame(s, cs.W2, cs.H2)
+                               for s in range(7, 11)]))
+    n = bench.shape[1] * bench.shape[2]
+    rnd = np.random.default_rng(5).integers(-1000, n + 5000, (4, n))
+    saved["flood"]["label_histogram 960x540 B=4 bench labels"] = (
+        "label_histogram", converged(bench))
+    saved["flood"]["label_histogram 960x540 B=4 clutter labels"] = (
+        "label_histogram", converged(clutter))
+    saved["flood"]["label_histogram 960x540 B=4 random labels"] = (
+        "label_histogram", torch.from_numpy(rnd.astype(np.int32)))
+    saved["flood"]["propagate 640x400 B=4 bench, 448 sweeps"] = (
+        "propagate", thresh(np.stack([cs.bench_scene(s)[0]
+                                      for s in range(4)])).cpu())
+    saved["flood"]["propagate 640x400 B=4 spiral, 448 sweeps"] = (
+        "propagate", torch.from_numpy(np.repeat(
+            cs.spiral_plane(cs.H // 2, cs.W // 2), 4, 0)))
     INPUTS.parent.mkdir(parents=True, exist_ok=True)
     torch.save(saved, INPUTS)
 
@@ -113,8 +148,24 @@ def ccl_calls(kernel: str, th):
             (ccl.propagate_fixpoint(th, flat),))
 
 
+def flood_calls(kernel: str, x):
+    """(kernel call, its outputs, the plain version's outputs) of K7 on
+    labels x or of K8 on the plane x (flat indices, 448 sweeps)."""
+    import torch
+    from ros_vision_tpu_torch.ops import ccl
+    from ros_vision_tpu_torch.ops import ccl_kernel as ck
+    if kernel == "label_histogram":
+        return (lambda: ck.label_histogram(x), (ck.label_histogram(x),),
+                (ccl.label_histogram(x),))
+    b, h, w = x.shape
+    flat = torch.arange(h * w, dtype=torch.int32, device=x.device)
+    flat = flat.view(1, h, w).expand(b, h, w).contiguous()
+    return (lambda: ck.propagate(x, flat, 448),
+            (ck.propagate(x, flat, 448),), (ccl.propagate(x, flat, 448),))
+
+
 def time_root(root: Path) -> None:
-    """Check and time root's K2, K4, K6 and K9 on the saved inputs."""
+    """Check and time root's kernels on the saved inputs."""
     sys.path.insert(0, str(root))
     import torch
     import ros_vision_tpu_torch
@@ -166,6 +217,10 @@ def time_root(root: Path) -> None:
                        (pts["key"], pts["pack2"], counts))
         rows.append(("boundary_compact", at, cs.both_ms(
             lambda: fk.boundary_compact(th, ranks, p_cap, k))))
+    for at, (kernel, x) in saved["flood"].items():
+        run, got, want = flood_calls(kernel, x.to(dev))
+        cs.max_abs_err(f"{root}: {at}", got, want)
+        rows.append((kernel, at, cs.both_ms(run)))
     for kernel, at, t in rows:
         print(json.dumps(dict(root=str(root), kernel=kernel, at=at, **t)))
 
