@@ -50,7 +50,9 @@
 // output with global atomics: a thread sums the runs of its first such
 // key, and the lanes of a warp whose first keys agree (found by ballot)
 // add their sums with one atomic; the thread's other such runs add one
-// each. Measured after (same script and card): see PERF.md section 6.
+// each. Measured after (same script and card, bench labels): 0.0117 ms
+// in one launch, 68,916 global atomics (943 on one address); cycles a
+// block: chunks 7,730, wait at the barrier 4,321, far runs 7,037.
 //
 // K8 replaces ccl_pallas.py propagate (pallas_call at :405, kernel body
 // _kernel:49): exactly n_sweeps Jacobi sweeps of the masked 8-neighbour
@@ -71,9 +73,12 @@
 // first plane, a 0 pixel of its cross in the second and 2^30, each a min
 // of row mins (__vimin3_s32). Any other region sweeps one plane with the
 // eight bits per pixel. Its shared-memory traffic (three 8-byte loads and
-// one store a pixel) bounds a sweep; loading the region and writing the
-// tile back take about a third of a round. Measured: see PERF.md
-// section 6.
+// one store a pixel) bounds a sweep. Measured
+// (scripts/mb_torch_flood_phases.py, NVIDIA H100 80GB HBM3, 700.00 W, 448
+// sweeps at 640x400 B=4 bench planes): before, a mask launch and 448
+// sweep launches, 3.2965 ms summed; after, 56 launches, 1.2626 ms summed,
+// a round's cycles a block: load 8,175, 8 sweeps 29,241, write-back
+// 4,583.
 #include <atomic>
 #include <climits>
 #include <cooperative_groups.h>
