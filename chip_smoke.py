@@ -43,10 +43,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
      launch a call up to N = 131,072; K6, K7 and K12 at 1920x1080 (bench
      scene B=4 and a cluttered frame past the 2048-blob rank space), K7
      (one cooperative launch a call) on the bench, clutter and random
-     labels and an unaligned batch; K8 (one launch a round of
+     labels, an unaligned batch and a batch of more chunks than the
+     co-resident grid holds; K8 (one launch a round of
      PROPAGATE_HALO sweeps kept in shared memory) at 1280x800 B=4, on the
-     union-find planes and ragged frames and on a plane with values
-     outside {0, 127, 255} (the kernel's masked path) with 0, 1, T, T+1 and 448
+     union-find planes and ragged frames with 0, 1, T, T+1 and 448
      sweeps (T = PROPAGATE_HALO), each K7 and K8 call checked to make its
      C launcher's device launches and repeated 10 times with identical
      outputs; K10 at B=4 S=1025 C=4 K=32768; K11 at B=4 K=131072 S=1025;
@@ -653,9 +653,11 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            [t2, init2])
 
     # K7 on converged labels (bench B=4, clutter B=1 and B=4), on random
-    # labels, some outside [0, N), and on a batch whose pointer is not
-    # 16-byte aligned: one cooperative launch a call, 10 repeated calls
-    # identical
+    # labels, some outside [0, N), on a batch whose pointer is not 16-byte
+    # aligned, and on a batch of more chunks than the grid's co-resident
+    # blocks, so that a block takes several chunks and reads its earlier
+    # ones again after the grid barrier: one cooperative launch a call, 10
+    # repeated calls identical
     rnd = rng.integers(-1000, n2 + 5000, (4, n2)).astype(np.int32)
     rnd[:, :3] = [-1, n2, 2 ** 31 - 1]
     rnd = torch.from_numpy(rnd).to(dev)
@@ -666,17 +668,31 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     unaligned = torch.empty(4 * n2 + 1, dtype=torch.int32, device=dev)
     unaligned = unaligned[1:].view(4, n2)
     unaligned.copy_(lab2)
+    # an SM holds at most 2048 threads, K7's blocks 512 (csrc/flood.cu
+    # kHistThreads) and take chunks of 8192 labels (kHistChunk); the H100
+    # has 132 SMs
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    most_resident = 2048 // 512 * sms
+    many = torch.cat([lab2, labc4, rnd] * (
+        -(-(most_resident + 1) * 8192 // (12 * n2)))).contiguous()
+    check(many.numel() > most_resident * 8192,
+          f"{many.numel()} labels fill no more than {most_resident} "
+          "chunks")
+    sets = (("bench labels B=4", lab2), ("clutter labels B=1", labc2),
+            ("clutter labels B=4", labc4), ("random labels", rnd),
+            ("unaligned bench labels", unaligned),
+            (f"bench, clutter and random labels B={many.shape[0]} "
+             f"({-(-many.numel() // 8192)} chunks)", many))
     err = 0.0
-    for what, v in (("bench labels B=4", lab2), ("clutter labels B=1", labc2),
-                    ("clutter labels B=4", labc4), ("random labels", rnd),
-                    ("unaligned bench labels", unaligned)):
+    for what, v in sets:
         got = device_launches(ck.histogram_launches,
                               lambda: ck.label_histogram(v),
                               ck.HISTOGRAM_LAUNCHES,
                               f"label_histogram on {what}")
         err = max(err, max_abs_err(f"label_histogram on {what}", (got,),
                                    (ccl.label_histogram(v),)))
-    print(f"  label_histogram: bit-exact on 5 label sets, "
+    print(f"  label_histogram: bit-exact on {len(sets)} label sets, "
           f"{ck.HISTOGRAM_LAUNCHES} device launch a call")
     lab2_64 = lab2.to(torch.int64)
     ones2 = torch.ones_like(lab2)
@@ -713,8 +729,7 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            library=lambda: torch.gather(rank_v2, 1, lab2_64))
 
     # K8 at 1280x800 B=4 (flat indices and random values), on the
-    # union-find planes, the ragged frames and a plane with other values
-    # than the threshold's (flat indices), with the hybrid
+    # union-find planes and the ragged frames (flat indices), with the hybrid
     # CCL's first round (448 sweeps), 0, 1, T and T + 1 sweeps (T sweeps a
     # launch); each call makes its plan's launches, 10 repeated calls
     # identical; its least work is 8 neighbour mins per pixel per sweep
@@ -726,14 +741,6 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
              ("bench 640x400 B=4, random values", t4, vals4)]
     cases += [(f"{what}, flat indices", t, flat_init(t))
               for what, t in adversarial.items()]
-    # a patch of values outside {0, 127, 255}: the tiles that see it take
-    # the kernel's masked path, the others its two planes
-    mixed = ragged_planes(2, H // 2, W // 2, seed=3)
-    y, x = H // 8, W // 6
-    mixed[:, y:y + 40, x:x + 60] = rng.choice([5, 200, 0, 255], (2, 40, 60))
-    mixed = torch.from_numpy(mixed).to(dev)
-    cases.append(("640x400 B=2, values outside {0, 127, 255}", mixed,
-                  flat_init(mixed)))
     halo = ck.PROPAGATE_HALO
     err = 0.0
     for what, t, v in cases:

@@ -7,12 +7,11 @@ launch by launch, and how many global atomics K7 makes, on one CUDA card.
 Each ROOT (default `.`) is the top of a checkout that holds
 ros_vision_tpu_torch/, for instance an older commit unpacked with `git
 archive` under build/. First this checkout captures the inputs on the
-card: K7's (4, 518400) labels at 960x540 (the decimated 1920x1080 frame)
--- the converged flood labels of chip_smoke.py's bench batch, the same of
-four of its clutter frames (seeds 7-10), and random labels in [-1000,
-N + 5000) -- and K8's 640x400 planes (the decimated 1280x800 frame, B=4)
-with the flat pixel indices as labels: chip_smoke.py's bench batch and
-four spiral planes, at 448 sweeps (the hybrid CCL's first round). Then
+card that scripts/mb_torch_kernel_versions.py flood_inputs makes: K7's
+(4, 518400) labels at 960x540 (the decimated 1920x1080 frame; bench,
+clutter and random labels) and K8's 640x400 planes (the decimated
+1280x800 frame, B=4; bench and spiral), swept from the flat pixel indices
+448 times (the hybrid CCL's first round). Then
 each ROOT, in the order given, runs in a process of its own that imports
 that root's package and, for each input:
 
@@ -66,47 +65,14 @@ def timing_helpers():
 
 
 def capture() -> None:
-    """Save K7's labels and K8's planes."""
+    """Save K7's labels and K8's planes, as mb_torch_kernel_versions.py
+    captures them."""
     sys.path.insert(0, str(ROOT))
-    import numpy as np
-    import torch
     from ros_vision_tpu_torch.device import require_cuda
-    from ros_vision_tpu_torch.ops import ccl
-    from ros_vision_tpu_torch.ops import threshold_kernel as tk
-    cs = timing_helpers()
-    dev = require_cuda()
-
-    def thresh(gray):
-        return tk.adaptive_threshold_plain(
-            torch.from_numpy(np.ascontiguousarray(gray)).to(dev))[1]
-
-    def flat(th):
-        b, h, w = th.shape
-        idx = torch.arange(h * w, dtype=torch.int32, device=dev)
-        return idx.view(1, h, w).expand(b, h, w).contiguous()
-
-    def converged(th):
-        return ccl.propagate_fixpoint(th, flat(th)).view(th.shape[0], -1)
-
-    bench = thresh(np.stack([cs.bench_scene(s, cs.W2, cs.H2,
-                                            cs.NOISE_1080)[0]
-                             for s in range(4)]))
-    clutter = thresh(np.stack([cs.clutter_frame(s, cs.W2, cs.H2)
-                               for s in range(7, 11)]))
-    n = bench.shape[1] * bench.shape[2]
-    rng = np.random.default_rng(5)
-    rnd = rng.integers(-1000, n + 5000, (4, n)).astype(np.int32)
-    rnd[:, :3] = [-1, n, 2 ** 31 - 1]
-    b800 = thresh(np.stack([cs.bench_scene(s)[0] for s in range(4)]))
-    spiral = torch.from_numpy(np.repeat(cs.spiral_plane(cs.H // 2,
-                                                        cs.W // 2), 4, 0))
-    saved = {"label_histogram": {
-                 "960x540 B=4 bench labels": converged(bench).cpu(),
-                 "960x540 B=4 clutter labels": converged(clutter).cpu(),
-                 "960x540 B=4 random labels": torch.from_numpy(rnd)},
-             "propagate": {
-                 f"640x400 B=4 bench, {SWEEPS} sweeps": b800.cpu(),
-                 f"640x400 B=4 spiral, {SWEEPS} sweeps": spiral}}
+    import torch
+    versions = load("mb_torch_kernel_versions",
+                    ROOT / "scripts" / "mb_torch_kernel_versions.py")
+    saved = versions.flood_inputs(timing_helpers(), require_cuda())
     INPUTS.parent.mkdir(parents=True, exist_ok=True)
     torch.save(saved, INPUTS)
 

@@ -20,7 +20,8 @@ threshold planes, plain ranks and detector caps (K and the stage-A cap
 3K/4); K7's (4, 518400) labels at 960x540 (the converged flood labels
 of the 1920x1080 bench batch and of four clutter frames, and random
 labels with some outside [0, N)) and K8's 640x400 planes (the 1280x800
-bench batch and four spiral planes, flat indices, 448 sweeps). Then each
+bench batch and four spiral planes, flat indices, 448 sweeps), which
+scripts/mb_torch_flood_phases.py takes too (flood_inputs). Then each
 ROOT, in the order given
 (so "OLD . . OLD" takes them in turns), runs in a process of its own that
 imports that root's package, builds its kernels, checks every call
@@ -95,17 +96,34 @@ def capture() -> None:
         saved["hist"][f"{at} (peak segments)"] = calls["hists"][1].cpu()
         saved["sort"][at] = [([o.cpu() for o in ops], nk)
                              for ops, nk in calls["sorts"]]
+    saved["flood"] = {f"{kernel} {at}": (kernel, x)
+                      for kernel, xs in flood_inputs(cs, dev).items()
+                      for at, x in xs.items()}
+    INPUTS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(saved, INPUTS)
+
+
+def flood_inputs(cs, dev) -> dict:
+    """K7's (4, 518400) labels at 960x540 (the decimated 1920x1080 frame):
+    the converged flood labels of chip_smoke.py's bench batch and of four
+    of its clutter frames (seeds 7-10), and random labels in [-1000,
+    N + 5000) with -1, N and INT32_MAX among them; K8's 640x400 planes
+    (the decimated 1280x800 frame, B=4): the bench batch and four spiral
+    planes. {kernel: {input: CPU tensor}}; cs is chip_smoke.py."""
+    import numpy as np
+    import torch
     from ros_vision_tpu_torch.ops import ccl
+    from ros_vision_tpu_torch.ops import threshold_kernel as tk
+
+    def thresh(gray):
+        return tk.adaptive_threshold_plain(torch.from_numpy(
+            np.ascontiguousarray(gray)).to(dev))[1]
 
     def converged(th):
         b, h, w = th.shape
         flat = torch.arange(h * w, dtype=torch.int32, device=dev)
         flat = flat.view(1, h, w).expand(b, h, w).contiguous()
         return ccl.propagate_fixpoint(th, flat).view(b, -1).cpu()
-
-    def thresh(gray):
-        return tk.adaptive_threshold_plain(torch.from_numpy(
-            np.ascontiguousarray(gray)).to(dev))[1]
 
     bench = thresh(np.stack([cs.bench_scene(s, cs.W2, cs.H2,
                                             cs.NOISE_1080)[0]
@@ -114,20 +132,18 @@ def capture() -> None:
                                for s in range(7, 11)]))
     n = bench.shape[1] * bench.shape[2]
     rnd = np.random.default_rng(5).integers(-1000, n + 5000, (4, n))
-    saved["flood"]["label_histogram 960x540 B=4 bench labels"] = (
-        "label_histogram", converged(bench))
-    saved["flood"]["label_histogram 960x540 B=4 clutter labels"] = (
-        "label_histogram", converged(clutter))
-    saved["flood"]["label_histogram 960x540 B=4 random labels"] = (
-        "label_histogram", torch.from_numpy(rnd.astype(np.int32)))
-    saved["flood"]["propagate 640x400 B=4 bench, 448 sweeps"] = (
-        "propagate", thresh(np.stack([cs.bench_scene(s)[0]
-                                      for s in range(4)])).cpu())
-    saved["flood"]["propagate 640x400 B=4 spiral, 448 sweeps"] = (
-        "propagate", torch.from_numpy(np.repeat(
-            cs.spiral_plane(cs.H // 2, cs.W // 2), 4, 0)))
-    INPUTS.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(saved, INPUTS)
+    rnd[:, :3] = [-1, n, 2 ** 31 - 1]
+    return {
+        "label_histogram": {
+            "960x540 B=4 bench labels": converged(bench),
+            "960x540 B=4 clutter labels": converged(clutter),
+            "960x540 B=4 random labels": torch.from_numpy(
+                rnd.astype(np.int32))},
+        "propagate": {
+            "640x400 B=4 bench, 448 sweeps": thresh(np.stack(
+                [cs.bench_scene(s)[0] for s in range(4)])).cpu(),
+            "640x400 B=4 spiral, 448 sweeps": torch.from_numpy(np.repeat(
+                cs.spiral_plane(cs.H // 2, cs.W // 2), 4, 0))}}
 
 
 def ccl_calls(kernel: str, th):
