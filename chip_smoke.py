@@ -46,7 +46,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
      labels, an unaligned batch and a batch of more chunks than the
      co-resident grid holds; K8 (one launch a round of
      PROPAGATE_HALO sweeps kept in shared memory) at 1280x800 B=4, on the
-     union-find planes and ragged frames with 0, 1, T, T+1 and 448
+     union-find planes and ragged frames and on a plane with values
+     outside {0, 127, 255} (the kernel's masked path) with 0, 1, T, T+1 and 448
      sweeps (T = PROPAGATE_HALO), each K7 and K8 call checked to make its
      C launcher's device launches and repeated 10 times with identical
      outputs; K10 at B=4 S=1025 C=4 K=32768; K11 at B=4 K=131072 S=1025;
@@ -729,7 +730,8 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            library=lambda: torch.gather(rank_v2, 1, lab2_64))
 
     # K8 at 1280x800 B=4 (flat indices and random values), on the
-    # union-find planes and the ragged frames (flat indices), with the hybrid
+    # union-find planes, the ragged frames and a plane with other values
+    # than the threshold's (flat indices), with the hybrid
     # CCL's first round (448 sweeps), 0, 1, T and T + 1 sweeps (T sweeps a
     # launch); each call makes its plan's launches, 10 repeated calls
     # identical; its least work is 8 neighbour mins per pixel per sweep
@@ -741,6 +743,14 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
              ("bench 640x400 B=4, random values", t4, vals4)]
     cases += [(f"{what}, flat indices", t, flat_init(t))
               for what, t in adversarial.items()]
+    # a patch of values outside {0, 127, 255}: the tiles that see it take
+    # the kernel's masked path, the others its two planes
+    mixed = ragged_planes(2, H // 2, W // 2, seed=3)
+    y, x = H // 8, W // 6
+    mixed[:, y:y + 40, x:x + 60] = rng.choice([5, 200, 0, 255], (2, 40, 60))
+    mixed = torch.from_numpy(mixed).to(dev)
+    cases.append(("640x400 B=2, values outside {0, 127, 255}", mixed,
+                  flat_init(mixed)))
     halo = ck.PROPAGATE_HALO
     err = 0.0
     for what, t, v in cases:

@@ -65,14 +65,25 @@
 // sweeps (ops/ccl_kernel.py propagate_plan), one launch each; a block
 // keeps an 80x112 tile and a halo of 8 in shared memory and sweeps
 // between two buffers, the valid area shrinking by one pixel a sweep. A
-// thread builds its pixels' eight eligibility bits once a round from the
-// staged threshold and walks a column of 12 pixels with the rows above
-// and below in registers, so a sweep reads three cells and stores one a
-// pixel; a masked-out neighbour offers 2^30 by a select, and the nine
-// offers take four __vimin3_s32. Measured
+// thread walks a column of 12 pixels with the rows above and below in
+// registers, so a sweep reads three cells a pixel. A region of {0, 127,
+// 255} (every threshold image) is kept as two planes, the labels of its
+// 255 pixels and of its 0 pixels with 2^30 elsewhere, so that a sweep
+// needs no eligibility bits: a 255 pixel takes the min of its 3x3 of the
+// first plane, a 0 pixel of its cross in the second and 2^30, each a min
+// of row mins (__vimin3_s32). Any other region sweeps one plane with the
+// eight bits per pixel. Its shared-memory traffic (three 8-byte loads and
+// one store a pixel) bounds a sweep. Measured
 // (scripts/mb_torch_flood_phases.py, NVIDIA H100 80GB HBM3, 700.00 W, 448
 // sweeps at 640x400 B=4 bench planes): before, a mask launch and 448
-// sweep launches, 3.2965 ms summed; after, 56 launches, RVT_K8_AFTER
+// sweep launches, 3.2965 ms summed; after, 56 launches, 1.2626 ms summed,
+// a round's cycles a block: load 8,175, 8 sweeps 29,241, write-back
+// 4,583. The masked path alone for every region (commit a0139f9: 4-byte
+// cells, all loads in flight) took 1.4344-1.4348 ms device against the
+// two planes' 1.3199-1.3228 in turns (scripts/mb_torch_kernel_versions.py,
+// same card), its 8 sweeps 37,523 cycles a round: its eight selects a
+// pixel cost more issue slots than the planes' 8-byte loads cost
+// shared-memory wavefronts.
 #include <atomic>
 #include <climits>
 #include <cooperative_groups.h>
@@ -346,7 +357,8 @@ constexpr int kPropRows = 12;        // propagate_plan's PROPAGATE_ROWS
 constexpr int kPropThreads = 1024;   // propagate_plan's threads
 // a thread's cells of the region, at most: every load is in flight at once
 constexpr int kPropLoadSteps = 13;
-static_assert(kPropRows % 4 == 0, "a thread's mask bytes fill its words");
+static_assert(kPropRows % 4 == 0 && kPropRows <= 16,
+              "a thread's mask bytes and class bits fit its words");
 
 // The region: the tile, the halo and a ring of one cell, `pitch` cells a
 // row; the thread's column and first row (cell coordinates).
@@ -390,10 +402,10 @@ __device__ __forceinline__ int offer(unsigned bits, int k, int v) {
   return (bits >> k) & 1u ? v : kBig;
 }
 
-// Each pixel's eight eligibility bits from the staged threshold tb, then
-// the sweeps over the label plane between in and out. Returns the buffer
-// that holds the last sweep.
-__device__ int* sweep_region(const Region& g, const uint8_t* tb, int* in,
+// Any threshold values: each pixel's eight eligibility bits from the
+// staged threshold tb, then sweeps over one label plane between in and
+// out. Returns the buffer that holds the last sweep.
+__device__ int* sweep_masked(const Region& g, const uint8_t* tb, int* in,
                              int* out, int h, int w, int sweeps) {
   constexpr int dy[8] = {0, 0, -1, 1, -1, -1, 1, 1};
   constexpr int dx[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
@@ -429,8 +441,8 @@ __device__ int* sweep_region(const Region& g, const uint8_t* tb, int* in,
       p += g.pitch;
       const int cL = p[-1], cM = p[0], cR = p[1];
       const unsigned bits = mw[i / 4] >> (8 * (i % 4));
-      // a masked-out neighbour offers 2^30, so a pixel with one (a 127
-      // pixel has eight) also takes min(., 2^30)
+      // a masked-out neighbour offers 2^30, so a pixel with one also
+      // takes min(., 2^30)
       q[i * g.pitch] = __vimin3_s32(
           __vimin3_s32(bM, offer(bits, 0, bL), offer(bits, 1, bR)),
           __vimin3_s32(offer(bits, 2, aM), offer(bits, 3, cM),
@@ -448,18 +460,70 @@ __device__ int* sweep_region(const Region& g, const uint8_t* tb, int* in,
   return in;
 }
 
+// A {0, 127, 255} region in two planes: a cell's .x is its label where it
+// is 255, its .y where it is 0, 2^30 elsewhere (127 pixels, cells off the
+// frame). A 255 pixel's sweep is then the plain min of its 3x3 cells' .x,
+// a 0 pixel's the min of its 4-neighbour cross's .y and 2^30: a neighbour
+// that is not eligible offers 2^30 by itself, so the sweep needs no
+// eligibility bits. Returns the buffer that holds the last sweep.
+__device__ int2* sweep_planes(const Region& g, const uint8_t* tb, int2* in,
+                              int2* out, int sweeps) {
+  // 2 bits a pixel i of the thread: 1 for 255, 2 for 0, 0 otherwise
+  unsigned cls = 0;
+#pragma unroll
+  for (int i = 0; i < kPropRows; ++i) {
+    const int v = tb[(g.row0 + i) * g.pitch + g.col];
+    cls |= (v == 255 ? 1u : v == 0 ? 2u : 0u) << (2 * i);
+  }
+  for (int s = 0; s < sweeps; ++s) {
+    // per row of the thread's column: the min of the three cells' .x
+    // (wa, wb, wc for the rows above, at and below the pixel), the same
+    // of .y (kb) and the cell's own .y (ka above, km at the pixel); the
+    // 3x3 min is then the min of three row mins
+    const int2* p = in + (g.row0 - 1) * g.pitch + g.col;
+    int wa = __vimin3_s32(p[-1].x, p[0].x, p[1].x);
+    int ka = p[0].y;
+    p += g.pitch;
+    int2 m = p[0];
+    int wb = __vimin3_s32(p[-1].x, m.x, p[1].x);
+    int kb = __vimin3_s32(p[-1].y, m.y, p[1].y);
+    int km = m.y;
+    int2* q = out + g.row0 * g.pitch + g.col;
+#pragma unroll
+    for (int i = 0; i < kPropRows; ++i) {
+      p += g.pitch;
+      const int2 l = p[-1], r = p[1];
+      m = p[0];
+      const int wc = __vimin3_s32(l.x, m.x, r.x);
+      const unsigned c = cls >> (2 * i);
+      q[i * g.pitch] = make_int2(
+          c & 1u ? __vimin3_s32(wa, wb, wc) : kBig,
+          c & 2u ? min(__vimin3_s32(kb, ka, m.y), kBig) : kBig);
+      wa = wb;
+      wb = wc;
+      ka = km;
+      km = m.y;
+      kb = __vimin3_s32(l.y, m.y, r.y);
+    }
+    __syncthreads();
+    int2* t = in;
+    in = out;
+    out = t;
+  }
+  return in;
+}
+
 __global__ void __launch_bounds__(kPropThreads, 1)
 propagate_tile_kernel(const uint8_t* __restrict__ thr,
                       const int* __restrict__ src, int* __restrict__ dst,
                       int h, int w, int tile_h, int tile_w, int halo,
                       int sweeps) {
-  // two buffers of the region's labels, then its threshold bytes
-  extern __shared__ int cells[];
+  // two buffers of the region's cells, 8 bytes each, then the threshold
+  extern __shared__ int2 cells2[];
   long long since = 0;
   phase_clock(1, 0, since);
   const Region g = region(h, w, tile_h, tile_w, halo);
-  uint8_t* tb = reinterpret_cast<uint8_t*>(cells + 2 * g.cells);
-  // every load of the thread's cells in flight before the first store
+  uint8_t* tb = reinterpret_cast<uint8_t*>(cells2 + 2 * g.cells);
   int lab[kPropLoadSteps], val[kPropLoadSteps];
   Walk at(threadIdx.x, g.pitch);
 #pragma unroll
@@ -471,26 +535,59 @@ propagate_tile_kernel(const uint8_t* __restrict__ thr,
     lab[k] = inside ? src[p] : kBig;
     val[k] = inside ? thr[p] : 127;
   }
+  bool other = false;          // a value outside {0, 127, 255} in the region
 #pragma unroll
   for (int k = 0; k < kPropLoadSteps; ++k) {
     const int i = threadIdx.x + k * kPropThreads;
     if (i < g.cells) {
-      cells[i] = lab[k];
       tb[i] = (uint8_t)val[k];
+      other |= val[k] != 0 && val[k] != 127 && val[k] != 255;
     }
+  }
+  Walk t(threadIdx.x, tile_w);
+  if (__syncthreads_or(other)) {
+    // one plane of labels over the first buffer, masked sweeps
+    int* in = reinterpret_cast<int*>(cells2);
+#pragma unroll
+    for (int k = 0; k < kPropLoadSteps; ++k) {
+      const int i = threadIdx.x + k * kPropThreads;
+      if (i < g.cells) in[i] = lab[k];
+    }
+    __syncthreads();
+    const int* last = sweep_masked(g, tb, in, in + g.cells, h, w, sweeps);
+    for (int i = threadIdx.x; i < tile_h * tile_w; i += kPropThreads,
+             t.next()) {
+      const int y = blockIdx.y * tile_h + t.r, x = blockIdx.x * tile_w + t.c;
+      if (y < h && x < w)
+        dst[g.base + (size_t)y * w + x] =
+            last[(t.r + halo + 1) * g.pitch + t.c + halo + 1];
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kPropLoadSteps; ++k) {
+    const int i = threadIdx.x + k * kPropThreads;
+    if (i < g.cells)
+      cells2[i] = make_int2(val[k] == 255 ? lab[k] : kBig,
+                            val[k] == 0 ? lab[k] : kBig);
   }
   __syncthreads();
   phase_clock(1, 1, since);
-  const int* last = sweep_region(g, tb, cells, cells + g.cells, h, w, sweeps);
+  const int2* last = sweep_planes(g, tb, cells2, cells2 + g.cells, sweeps);
   phase_clock(1, 2, since);
-  Walk t(threadIdx.x, tile_w);
+  // the tile's pixels inside the frame: a 127 pixel has taken
+  // min(., 2^30) in the first sweep and kept it
 #pragma unroll 4
   for (int i = threadIdx.x; i < tile_h * tile_w; i += kPropThreads,
            t.next()) {
     const int y = blockIdx.y * tile_h + t.r, x = blockIdx.x * tile_w + t.c;
-    if (y < h && x < w)
-      dst[g.base + (size_t)y * w + x] =
-          last[(t.r + halo + 1) * g.pitch + t.c + halo + 1];
+    if (y >= h || x >= w) continue;
+    const size_t p = g.base + (size_t)y * w + x;
+    const int cell = (t.r + halo + 1) * g.pitch + t.c + halo + 1;
+    const int c = tb[cell];
+    dst[p] = c == 255 ? last[cell].x
+             : c == 0 ? last[cell].y
+                      : min(src[p], kBig);
   }
   RVT_PHASE_SYNC();
   phase_clock(1, 3, since);
@@ -600,7 +697,7 @@ extern "C" int rvt_propagate(const uint8_t* thr, const int* labels,
       (long long)(tiles_x - 1) * tile_w >= w ||
       (long long)tiles_y * tile_h < h ||
       (long long)(tiles_y - 1) * tile_h >= h || tiles_y > 65535 || b < 1 ||
-      b > 65535 || smem < 9 * cells ||
+      b > 65535 || smem < 17 * cells ||
       cells > (long long)kPropLoadSteps * kPropThreads ||
       (scratch == nullptr && rounds > 1))
     return (int)cudaErrorInvalidValue;

@@ -88,7 +88,7 @@ class PropagatePlan:
     tiles_y: int
     rounds: int
     threads: int
-    smem_bytes: int   # two buffers of 4 B a cell and the threshold
+    smem_bytes: int   # two buffers of 8 B a cell and the threshold
 
     @property
     def launches(self) -> int:
@@ -113,7 +113,8 @@ def propagate_plan(h: int, w: int, n_sweeps: int) -> PropagatePlan:
     column each, and 8 sweeps a launch. The halo's cost grows with the
     sweeps a launch (1.37x the tile's pixels here) and the launches
     shrink with them; at 640x400 B=4 the frames are 120 tiles, one wave
-    on 132 SMs at one block an SM."""
+    on 132 SMs (a block's 216,592 bytes of shared memory leave one an
+    SM)."""
     if h < 1 or w < 1:
         raise ValueError(f"frames of {h}x{w} pixels cannot be swept")
     if n_sweeps < 0:
@@ -128,7 +129,7 @@ def propagate_plan(h: int, w: int, n_sweeps: int) -> PropagatePlan:
         tile_h=PROPAGATE_TILE_H, tile_w=PROPAGATE_TILE_W, halo=halo,
         tiles_x=-(-w // PROPAGATE_TILE_W), tiles_y=tiles_y,
         rounds=-(-n_sweeps // halo), threads=PROPAGATE_THREADS,
-        smem_bytes=2 * 4 * cells + -(-cells // 16) * 16)
+        smem_bytes=2 * 8 * cells + -(-cells // 16) * 16)
 
 
 def _propagate_fixpoint_cuda(threshim: torch.Tensor,
