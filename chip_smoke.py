@@ -50,7 +50,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
      outside {0, 127, 255} (the kernel's masked path) with 0, 1, T, T+1 and 448
      sweeps (T = PROPAGATE_HALO), each K7 and K8 call checked to make its
      C launcher's device launches and repeated 10 times with identical
-     outputs; K10 at B=4 S=1025 C=4 K=32768; K11 at B=4 K=131072 S=1025;
+     outputs; K10 (one launch a call) at B=4 S=1025 C=4 K=32768, also at
+     C = 1, 3, 4 and 9, K = 32771 and on a table with -0.0, inf and NaN;
+     K11 (one thread-block cluster launch a call) at B=4 K=131072 S=1025
+     on the path's sorted ids and on random ids, also at K = 131075, B = 1,
+     B = 12, S above segment_plan's cap and with every id outside [0, S);
+     each K10 and K11 call checked to make its C launcher's one device
+     launch and repeated 10 times with identical outputs. Before the
+     kernel rows, the launch floor: device and call time of
+     torch.cuda._sleep(0), one launch of a kernel that does nothing;
   3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
      on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
      every row, corners within 0.1 px of the same detector's plain path on
@@ -71,9 +79,9 @@ its tests), so their launches read 0.
 Every path of phases 3-5 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
-K6 and K7 report equal their fixed number per call times the calls (K1 1,
-K2 6, K3 1, K4 1, K6 4, K7 1), and K8's equal its plan's (one a round of
-PROPAGATE_HALO sweeps) summed over its calls.
+K6, K7, K10 and K11 report equal their fixed number per call times the
+calls (K1 1, K2 6, K3 1, K4 1, K6 4, K7 1, K10 1, K11 1), and K8's equal
+its plan's (one a round of PROPAGATE_HALO sweeps) summed over its calls.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -211,9 +219,10 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
 
 def check_device_launches(what: str, counts: dict,
                           propagate: int = 0) -> None:
-    """The device launches that the C launchers of K1, K2, K3, K4, K6 and
-    K7 reported over a path's run: their fixed number per call times the
-    calls; and K8's: `propagate`, the sum of its calls' plans."""
+    """The device launches that the C launchers of K1, K2, K3, K4, K6, K7,
+    K10 and K11 reported over a path's run: their fixed number per call
+    times the calls; and K8's: `propagate`, the sum of its calls'
+    plans."""
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
@@ -224,7 +233,8 @@ def check_device_launches(what: str, counts: dict,
                            ("boundary_compact", fk.BOUNDARY_LAUNCHES),
                            ("propagate_fixpoint", ck.FIXPOINT_LAUNCHES),
                            ("label_histogram", ck.HISTOGRAM_LAUNCHES),
-                           ("value_histogram", 1)):
+                           ("value_histogram", 1), ("table_take_cm", 1),
+                           ("segment_min_max", 1)):
         check(kernels[name] == per_call * counts[name],
               f"{what}: {name} made {kernels[name]} device launches in "
               f"{counts[name]} calls, not {per_call} each")
@@ -382,6 +392,9 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     from ros_vision_tpu_torch.ops import sort_kernel as sk
     from ros_vision_tpu_torch.ops import threshold_kernel as tk
 
+    floor = both_ms(lambda: torch.cuda._sleep(0))
+    print(f"  launch floor, torch.cuda._sleep(0): {floor['device_ms']:.4f} "
+          f"ms device / {floor['call_ms']:.4f} call")
     results = []
     g4 = torch.from_numpy(bench4).to(dev)
     gc = torch.from_numpy(clutter[None]).to(dev)
@@ -448,9 +461,12 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
         made = counter.kernels - before
         check(made == want, f"{what}: {made} device launches in one call, "
               f"not {want}")
+        def bits(t):      # compared bit for bit, so NaN equals itself
+            return t.contiguous().view(torch.uint8)
+
         for _ in range(REPEATS):
             again = call()
-            check(all(torch.equal(a, b) for a, b in zip(
+            check(all(torch.equal(bits(a), bits(b)) for a, b in zip(
                 (out,) if isinstance(out, torch.Tensor) else out,
                 (again,) if isinstance(again, torch.Tensor) else again)),
                   f"{what}: a repeated call gave other outputs")
@@ -829,17 +845,31 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            also=sort_shapes)
 
     # K10 at the shape of cluster_and_fit's (B, NSEG1, 4) per-segment table
-    # gathered at its (B, 32768) segment ids; random indices (some outside
-    # [0, S)) over a table with -0.0, inf and NaN entries
+    # gathered at its (B, 32768) segment ids; C = 1, 3, 4 and 9 (C = 4 the
+    # kernel's float4 rows), a ragged K = 32771 (its scalar path), and
+    # random indices (some outside [0, S)) over a table with -0.0, inf and
+    # NaN entries: one device launch a call, 10 repeated calls identical
     table = torch.from_numpy(rng.normal(0, 100, (4, 1025, 4)).astype(
         np.float32)).to(dev)
     odd_tab = table.clone()
     odd_tab[0, 5] = torch.tensor([-0.0, float("inf"), float("nan"), -1.0])
     odd_idx = b4(-5, 1030, 32768)
     odd_idx[:, :64] = 5
-    err = max(max_abs_err("table_take_cm", (gk.take_cm(tab, ix),),
-                          (gk.table_take_cm_plain(tab, ix),))
-              for tab, ix in ((table, seg), (odd_tab, odd_idx)))
+    cases = [("path ids, C=4", table, seg),
+             ("non-finite table", odd_tab, odd_idx)]
+    for c in (1, 3, 4, 9):
+        tab_c = torch.from_numpy(rng.normal(0, 100, (4, 1025, c)).astype(
+            np.float32)).to(dev)
+        cases += [(f"C={c}", tab_c, seg),
+                  (f"C={c} K=32771", tab_c, b4(-5, 1030, 32771))]
+    err = 0.0
+    for what, tab, ix in cases:
+        got = device_launches(gk.take_launches, lambda: gk.take_cm(tab, ix),
+                              1, f"table_take_cm on {what}")
+        err = max(err, max_abs_err(f"table_take_cm on {what}", (got,),
+                                   (gk.table_take_cm_plain(tab, ix),)))
+    print(f"  table_take_cm: bit-exact on {len(cases)} inputs, 1 device "
+          "launch a call")
     table_t = table.transpose(1, 2)
     seg64 = seg.to(torch.int64)[:, None, :].expand(4, 4, seg.shape[1])
     record("table_take_cm", "gather.cu",
@@ -851,15 +881,44 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
 
     # K11 at 1920x1080: the y extents of the (B, 131072) segments (the
     # role of cluster_and_fit's ykey sort), and random ids (some outside
-    # [0, S)) with values past +-2^30
+    # [0, S)) with values past +-2^30; a ragged K = 131075, one row, a
+    # B = 12 batch, S above segment_plan's cap of segments a cluster
+    # holds (two slices), and ids all outside [0, S) (-1, S, INT32_MAX,
+    # INT32_MIN): one device launch a call, 10 repeated calls identical
     key_s2, pack2_s2 = qf._sort2(key2, pack22)
     seg2 = segs.segment_ids_from_sorted_keys(
         key_s2, valid=key_s2 < qf.KEY_INVALID, max_segments=1024)
     y2 = qf.unpack_payload(pack2_s2)[1].contiguous()
-    rnd_seg, rnd_val = b4(-20, 1045, 131072), b4(-2 ** 31, 2 ** 31 - 1, 131072)
-    err = max(max_abs_err("segment_min_max", gk.segment_min_max(sg, v, 1025),
-                          gk.segment_min_max_plain(sg, v, 1025))
-              for sg, v in ((seg2, y2), (rnd_seg, rnd_val)))
+
+    def rows(b, lo, hi, k):
+        return torch.from_numpy(rng.integers(lo, hi, (b, k), dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    wide = (-2 ** 31, 2 ** 31 - 1)
+    rnd_seg, rnd_val = b4(-20, 1045, 131072), b4(*wide, 131072)
+    cap = gk.SEG_MAX_SLICE + 1
+    outside = torch.tensor([-1, 1025, 2 ** 31 - 1, -2 ** 31],
+                           dtype=torch.int32, device=dev)
+    cases = [("path ids", seg2, y2, 1025),
+             ("random ids", rnd_seg, rnd_val, 1025),
+             ("path ids K=131075", torch.cat([seg2, seg2[:, -3:]], 1),
+              torch.cat([y2, y2[:, :3]], 1), 1025),
+             ("path ids B=1", seg2[:1], y2[:1], 1025),
+             ("random ids B=12", rows(12, -20, 1045, 131072),
+              rows(12, *wide, 131072), 1025),
+             (f"random ids S={cap}", b4(-20, cap + 20, 131072), rnd_val,
+              cap),
+             ("ids all outside [0, S)", outside[b4(0, 4, 131072).long()],
+              rnd_val, 1025)]
+    err = 0.0
+    for what, sg, v, s in cases:
+        got = device_launches(gk.minmax_launches,
+                              lambda: gk.segment_min_max(sg, v, s), 1,
+                              f"segment_min_max on {what}")
+        err = max(err, max_abs_err(f"segment_min_max on {what}", got,
+                                   gk.segment_min_max_plain(sg, v, s)))
+    print(f"  segment_min_max: bit-exact on {len(cases)} inputs, 1 device "
+          "launch a call")
     seg2_64 = seg2.to(torch.int64)
     mn_out = torch.full((4, 1025), 2 ** 30, dtype=torch.int32, device=dev)
     mx_out = torch.full_like(mn_out, -2 ** 30)

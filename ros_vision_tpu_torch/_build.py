@@ -62,10 +62,11 @@ _SIGNATURES = {
     # in0..2, work0..2, out0..2, launches, b, k, n, nops, nkeys, tile,
     # cluster, threads, smem
     "rvt_sort": [_P] * 10 + [_I] * 9,
-    # table, idx, out, b, s, c, k
-    "rvt_table_take_cm": [_P] * 3 + [_I] * 4,
-    # seg, val, mn, mx, b, k, s
-    "rvt_segment_min_max": [_P] * 4 + [_I] * 3,
+    # table, idx, out, launches, b, s, c, k
+    "rvt_table_take_cm": [_P] * 4 + [_I] * 4,
+    # seg, val, mn, mx, launches, b, k, s, cluster, threads, chunk, slices,
+    # per_slice, per_rank, smem
+    "rvt_segment_min_max": [_P] * 5 + [_I] * 10,
 }
 
 
@@ -160,7 +161,7 @@ class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
     else, so a run can show that the main path went through the kernel.
     `kernels` sums the device kernel launches that C launchers which
-    report them (K1-K4, K6-K9) made for those calls."""
+    report them (K1-K4, K6-K11) made for those calls."""
 
     def __init__(self, name: str):
         self.name = name

@@ -7,89 +7,314 @@
 // (pallas_call at :251, kernel body _make_minmax_kernel:201). The TPU
 // masks a one-hot (K_TILE, 256) plane per S-chunk and reduces it, because
 // it has no scatter-min. Bound on the H100: bytes, seg and val read once
-// (1 MB per 131,072-point frame) and the two (B, S) tables written once.
-// Design: each block keeps both tables of its batch row for a slice of at
-// most kSegs segments in shared memory (2 x 4 KB at S = 1025), folds its
-// share of the points in with shared atomicMin/atomicMax, and merges the
-// entries it changed into the global tables (first filled with +-2^30)
-// with global atomics. Min and max are order-independent, so the result
-// is bit-exact whatever the order. Lanes holding the same segment (sorted
-// ids put whole warps on one) reduce with __reduce_min_sync /
-// __reduce_max_sync first and one leader per group updates the table.
+// (1 MB per 131,072-point row) and the two (B, S) tables written once; a
+// row's points go to one cluster, so the rate one SM pulls from L2
+// (~18-20 B a clock measured here) and the launch weigh more.
+// Design: one launch, one thread-block cluster of R blocks (R <= 16, a
+// non-portable size above 8) per (row, slice of at most 4,096 segments),
+// grid (R, B, slices):
+//   - each block starts both tables of its slice at +-2^30 in shared
+//     memory and takes one contiguous chunk of the row; each thread loads
+//     `kItems` consecutive points (16-byte loads of seg and of val, all
+//     issued before any reduction; scalar loads at a ragged edge);
+//   - a thread folds runs of equal ids into one (min, max) in registers;
+//     every run but its last goes straight to the block's tables with
+//     shared atomicMin / atomicMax; the last runs of a warp's lanes are
+//     merged with one __match_any_sync and __reduce_{min,max}_sync, and
+//     one leader a group updates the tables;
+//   - after cluster.sync(), block rank r owns segments
+//     [r * per_rank, (r + 1) * per_rank) of the slice, reduces them over
+//     the R tables through distributed shared memory and writes mn and mx
+//     with plain coalesced stores: every output entry is written exactly
+//     once, so there is no fill pass and no global atomic;
+//   - a second cluster.sync() keeps every table alive until it is read.
+// Min and max are order-independent, so the result is bit-exact whatever
+// the order.
+//
+// The launch plan (R, threads, chunk, slices, segments per slice and per
+// rank, shared bytes) is ops/gather_kernel.py segment_plan's;
+// rvt_segment_min_max takes it as given and checks only what the device
+// and the kernel's layout require.
+#include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+// -DRVT_SEGMENT_PHASE_CLOCKS (a timing build, off by default; see
+// scripts/mb_torch_gather_phases.py): thread 0 of each block adds the
+// clock cycles of the kernel's five phases and counts the blocks;
+// rvt_segment_clocks(out) returns the five sums, the blocks, and the
+// first start and the last end on the global timer (ns) since the last
+// read. The phases: the tables' start; the points (loads, runs and
+// shared atomics); the first cluster.sync(); the owners' merge; the
+// second cluster.sync() (each up to a __syncthreads of this build).
+#ifdef RVT_SEGMENT_PHASE_CLOCKS
+constexpr int kPhases = 5;
+__device__ unsigned long long g_segment_clocks[kPhases + 3];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// phase 0 starts the block's clock; phases 1-5 add the cycles since the
+// last call to sum phase - 1, and phase 5 ends the block
+__device__ __forceinline__ void phase_clock(int phase, long long& since) {
+  if (threadIdx.x != 0) return;
+  const long long now = clock64();
+  unsigned long long* c = g_segment_clocks;
+  if (phase == 0) {
+    atomicMin(&c[kPhases + 1], global_ns());
+  } else {
+    atomicAdd(&c[phase - 1], (unsigned long long)(now - since));
+  }
+  if (phase == kPhases) {
+    atomicAdd(&c[kPhases], 1ull);
+    atomicMax(&c[kPhases + 2], global_ns());
+  }
+  since = now;
+}
+extern "C" int rvt_segment_clocks(unsigned long long* out) {
+  unsigned long long zero[kPhases + 3] = {};
+  zero[kPhases + 1] = ~0ull;
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_segment_clocks, sizeof(zero));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyToSymbol(g_segment_clocks, zero, sizeof(zero));
+}
+#define RVT_PHASE_SYNC() __syncthreads()
+#else
+__device__ __forceinline__ void phase_clock(int, long long&) {}
+#define RVT_PHASE_SYNC()
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItemsPerThread = 8;
-constexpr int kSegs = 4096;       // segments per block slice: 32 KB of tables
+constexpr int kItems = 16;         // consecutive points a thread loads
+constexpr int kMaxCluster = 16;    // the H100's, non-portable
+constexpr int kPortableCluster = 8;
+constexpr int kMaxThreads = 1024;
+constexpr int kSmemLimit = 48 * 1024;  // a block's shared memory, no opt-in
+constexpr int kMaxDevices = 64;
+constexpr int kClusterUnplaceable = -1;
 constexpr int kBig = 1 << 30;
 
-__global__ void fill_minmax_kernel(int* mn, int* mx, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < total) {
-    mn[i] = kBig;
-    mx[i] = -kBig;
+// Folds n consecutive points (id, v) into runs of equal ids: every run but
+// the last goes to the tables with shared atomics; the last is returned.
+template <int n>
+__device__ __forceinline__ void fold_runs(const int* id, const int* v,
+                                          int* tmin, int* tmax, int s0,
+                                          unsigned ns_u, int& cur, int& lo,
+                                          int& hi) {
+  cur = id[0];
+  lo = v[0];
+  hi = v[0];
+#pragma unroll
+  for (int j = 1; j < n; ++j) {
+    if (id[j] != cur) {
+      const unsigned local = (unsigned)cur - (unsigned)s0;
+      if (local < ns_u) {
+        atomicMin(tmin + local, lo);
+        atomicMax(tmax + local, hi);
+      }
+      cur = id[j];
+      lo = v[j];
+      hi = v[j];
+    } else {
+      lo = min(lo, v[j]);
+      hi = max(hi, v[j]);
+    }
   }
 }
 
-__global__ void segment_minmax_kernel(const int* __restrict__ seg,
-                                      const int* __restrict__ val, int* mn,
-                                      int* mx, int k, int s) {
-  __shared__ int tmin[kSegs];
-  __shared__ int tmax[kSegs];
+// The lanes' last runs: lanes holding the same in-slice id reduce theirs,
+// and one leader a group updates the tables. Every lane must call it.
+__device__ __forceinline__ void merge_last_runs(int cur, int lo, int hi,
+                                                int* tmin, int* tmax, int s0,
+                                                unsigned ns_u, int lane) {
+  const unsigned local = (unsigned)cur - (unsigned)s0;
+  const bool in = local < ns_u;
+  const unsigned peers = __match_any_sync(0xffffffffu, in ? (int)local : -1);
+  lo = __reduce_min_sync(peers, lo);
+  hi = __reduce_max_sync(peers, hi);
+  if (in && lane == __ffs(peers) - 1) {
+    atomicMin(tmin + local, lo);
+    atomicMax(tmax + local, hi);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+    segment_minmax_kernel(const int* __restrict__ seg,
+                          const int* __restrict__ val, int* __restrict__ mn,
+                          int* __restrict__ mx, int k, int s, int chunk,
+                          int per_slice, int per_rank) {
+  extern __shared__ int tables[];
+  long long since = 0;
+  phase_clock(0, since);
+  int* tmin = tables;
+  int* tmax = tables + per_slice;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int row = blockIdx.y;
-  const int s0 = blockIdx.z * kSegs;
-  const int ns = min(kSegs, s - s0);
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+  const int s0 = blockIdx.z * per_slice;
+  const int ns = min(per_slice, s - s0);
+  const unsigned ns_u = (unsigned)ns;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  for (int i = tid; i < ns; i += blockDim.x) {
     tmin[i] = kBig;
     tmax[i] = -kBig;
   }
   __syncthreads();
+  phase_clock(1, since);
   const int* sg = seg + (size_t)row * k;
   const int* vl = val + (size_t)row * k;
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * blockDim.x;
+  const int lo_pt = min(k, rank * chunk);
+  const int hi_pt = min(k, lo_pt + chunk);
   // the loop bound is uniform over the block, so every lane of every warp
   // reaches __match_any_sync together
-  for (int base = blockIdx.x * blockDim.x; base < k; base += stride) {
-    const int i = base + threadIdx.x;
-    const int sl = i < k ? sg[i] - s0 : -1;
-    const bool in = sl >= 0 && sl < ns;
-    const int key = in ? sl : -1;
-    const int v = i < k ? vl[i] : 0;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    const int lo = __reduce_min_sync(peers, v);
-    const int hi = __reduce_max_sync(peers, v);
-    if (in && lane == __ffs(peers) - 1) {
-      atomicMin(tmin + sl, lo);
-      atomicMax(tmax + sl, hi);
+  for (int base = lo_pt; base < hi_pt; base += blockDim.x * kItems) {
+    const int p0 = base + tid * kItems;
+    int id[kItems], v[kItems];
+    if (kVec && p0 + kItems <= hi_pt) {
+      const int4* s4 = reinterpret_cast<const int4*>(sg + p0);
+      const int4* v4 = reinterpret_cast<const int4*>(vl + p0);
+      int4 a[kItems / 4], b[kItems / 4];
+#pragma unroll
+      for (int j = 0; j < kItems / 4; ++j) {
+        a[j] = __ldg(s4 + j);
+        b[j] = __ldg(v4 + j);
+      }
+#pragma unroll
+      for (int j = 0; j < kItems / 4; ++j) {
+        id[4 * j] = a[j].x;
+        id[4 * j + 1] = a[j].y;
+        id[4 * j + 2] = a[j].z;
+        id[4 * j + 3] = a[j].w;
+        v[4 * j] = b[j].x;
+        v[4 * j + 1] = b[j].y;
+        v[4 * j + 2] = b[j].z;
+        v[4 * j + 3] = b[j].w;
+      }
+    } else {
+      // -1 lies outside every slice, so past the chunk nothing is added
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const bool in = p0 + j < hi_pt;
+        id[j] = in ? __ldg(sg + p0 + j) : -1;
+        v[j] = in ? __ldg(vl + p0 + j) : 0;
+      }
     }
+    int cur, lo, hi;
+    fold_runs<kItems>(id, v, tmin, tmax, s0, ns_u, cur, lo, hi);
+    merge_last_runs(cur, lo, hi, tmin, tmax, s0, ns_u, lane);
   }
-  __syncthreads();
+  RVT_PHASE_SYNC();
+  phase_clock(2, since);
+  cluster.sync();
+  phase_clock(3, since);
+  // block rank r reduces its segments over the cluster's tables
+  const int c = (int)cluster.num_blocks();
   int* om = mn + (size_t)row * s + s0;
   int* ox = mx + (size_t)row * s + s0;
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-    if (tmin[i] != kBig) atomicMin(om + i, tmin[i]);
-    if (tmax[i] != -kBig) atomicMax(ox + i, tmax[i]);
+  const int end = min(ns, (rank + 1) * per_rank);
+  for (int i = rank * per_rank + tid; i < end; i += blockDim.x) {
+    int lo = kBig, hi = -kBig;
+#pragma unroll 4
+    for (int q = 0; q < c; ++q) {
+      lo = min(lo, cluster.map_shared_rank(tmin, q)[i]);
+      hi = max(hi, cluster.map_shared_rank(tmax, q)[i]);
+    }
+    om[i] = lo;
+    ox[i] = hi;
   }
+  RVT_PHASE_SYNC();
+  phase_clock(4, since);
+  // keeps every table alive until it is read
+  cluster.sync();
+  RVT_PHASE_SYNC();
+  phase_clock(5, since);
+}
+
+// Once per process, device, kernel and cluster size: that the device can
+// place such a cluster of the largest blocks a plan may ask for (1,024
+// threads, the 48 KB of shared memory a block has without opting in), so
+// that it can place any plan's.
+template <bool kVec>
+int prepare(int device, const cudaLaunchConfig_t& cfg, int cluster) {
+  static std::atomic<int> placed[kMaxDevices][kMaxCluster + 1];
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (placed[device][cluster].load(std::memory_order_acquire)) return 0;
+  cudaError_t err = cudaSuccess;
+  if (cluster > kPortableCluster)
+    err = cudaFuncSetAttribute(segment_minmax_kernel<kVec>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t one = cfg;
+  one.gridDim = dim3(cluster, 1, 1);
+  one.blockDim = dim3(kMaxThreads, 1, 1);
+  one.dynamicSmemBytes = kSmemLimit;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters,
+                                       segment_minmax_kernel<kVec>, &one);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return kClusterUnplaceable;
+  placed[device][cluster].store(1, std::memory_order_release);
+  return 0;
 }
 
 }  // namespace
 
+// seg, val (B, K); mn, mx (B, S); cluster, threads, chunk, slices,
+// per_slice, per_rank and smem the plan of ops/gather_kernel.py
+// segment_plan. *launches receives the number of kernel launches made.
+// Returns a cudaError_t, or -1 when the device cannot place the cluster.
 extern "C" int rvt_segment_min_max(const int* seg, const int* val, int* mn,
-                                   int* mx, int b, int k, int s, int device,
+                                   int* mx, int* launches, int b, int k,
+                                   int s, int cluster, int threads, int chunk,
+                                   int slices, int per_slice, int per_rank,
+                                   int smem, int device,
                                    cudaStream_t stream) {
+  *launches = 0;
   cudaSetDevice(device);
-  const int total = b * s;
-  if (total == 0) return 0;
-  fill_minmax_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
-                       stream>>>(mn, mx, total);
-  if (k == 0) return (int)cudaGetLastError();
-  const int per_block = kThreads * kItemsPerThread;
-  segment_minmax_kernel<<<dim3((k + per_block - 1) / per_block, b,
-                               (s + kSegs - 1) / kSegs),
-                          kThreads, 0, stream>>>(seg, val, mn, mx, k, s);
-  return (int)cudaGetLastError();
+  if (b == 0 || s == 0) return 0;
+  // the layout: whole warps (__match_any_sync over all 32 lanes); every
+  // point in one block's chunk, whole 16-byte groups from a chunk's start;
+  // every segment in one slice and one rank's part of it; both tables of
+  // a slice in shared memory; point indices that stay inside an int
+  if (b < 0 || b > 65535 || k < 0 || k > (1 << 30) || s < 0 ||
+      cluster < 1 || cluster > kMaxCluster || threads < 32 ||
+      threads % 32 != 0 || threads > kMaxThreads || chunk < 0 ||
+      chunk % 4 != 0 || (long long)chunk * cluster < k || slices < 1 ||
+      slices > 65535 || per_slice < 1 ||
+      (long long)per_slice * slices < s || per_rank < 1 ||
+      (long long)per_rank * cluster < per_slice ||
+      smem != 2 * (int)sizeof(int) * per_slice || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(seg) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(val) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, b, slices);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const int err = vec ? prepare<true>(device, cfg, cluster)
+                      : prepare<false>(device, cfg, cluster);
+  if (err != 0) return err;
+  const cudaError_t rc =
+      vec ? cudaLaunchKernelEx(&cfg, segment_minmax_kernel<true>, seg, val,
+                               mn, mx, k, s, chunk, per_slice, per_rank)
+          : cudaLaunchKernelEx(&cfg, segment_minmax_kernel<false>, seg, val,
+                               mn, mx, k, s, chunk, per_slice, per_rank);
+  *launches = rc == cudaSuccess;
+  return (int)rc;
 }

@@ -5,14 +5,21 @@ K4, out[b, s] = #(values[b] == s), replaces
 ros_vision_tpu/ops/gather_pallas.py value_histogram (the per-segment
 counts of cluster_and_fit); values outside [0, num_values) are not
 counted. It runs one thread-block cluster per row in one launch
-(histogram_plan), for num_values up to 8,192. K10, out[b, c, k] = table[b, idx[b, k], c] (0 for an index
-outside [0, S)), replaces gather_pallas.py table_take_cm, with take_cm its
-dispatcher. K11, the per-segment min and max of (B, K) values, replaces
-gather_pallas.py segment_min_max. K12, out[b, i] = rank_v[b, labels[b, i]]
-(0 for a label outside [0, N)), replaces gather_pallas.py rank_gather (the
-rank broadcast of ccl.flood_ranks). A CUDA tensor launches
-csrc/histogram.cu, csrc/gather.cu (K10, K12) or csrc/segment.cu (K11); a
-CPU tensor runs the plain version. Bit-exact either way.
+(histogram_plan), for num_values up to 8,192. K10, out[b, c, k] =
+table[b, idx[b, k], c] (0 for an index outside [0, S)), replaces
+gather_pallas.py table_take_cm, with take_cm its dispatcher: one launch,
+a thread per 4 consecutive k with 16-byte index loads and stores (a
+float4 table row at C = 4). K11, the per-segment min and max of (B, K)
+values, replaces gather_pallas.py segment_min_max: one launch of a
+thread-block cluster per (row, slice of segments) (segment_plan), each
+block's tables in shared memory merged by their owners over distributed
+shared memory, with no fill pass and no global atomic. K12, out[b, i] =
+rank_v[b, labels[b, i]] (0 for a label outside [0, N)), replaces
+gather_pallas.py rank_gather (the rank broadcast of ccl.flood_ranks). A
+CUDA tensor launches csrc/histogram.cu, csrc/gather.cu (K10, K12) or
+csrc/segment.cu (K11); a CPU tensor runs the plain version. Bit-exact
+either way. scripts/mb_torch_gather_phases.py times K10's and K11's
+device launches beside the launch floor.
 
 K10 follows table_take_cm_ref's contract, not the TPU kernel's arithmetic:
 the TPU kernel gathers by a one-hot f32 matmul, which turns -0.0 into
@@ -38,6 +45,11 @@ _BIG = 2 ** 30             # segment_min_max's empty-segment min (-max)
 HIST_CLUSTER = 8           # blocks per row in csrc/histogram.cu
 HIST_THREADS = 1024
 HIST_MAX_BINS = 8192       # one shared-memory table of int32 bins
+SEG_MAX_CLUSTER = 16       # the H100's non-portable cluster size
+SEG_ITEMS = 16             # consecutive points a thread of segment.cu loads
+SEG_MAX_SLICE = 4096       # segments a cluster's tables hold (32 KB a block)
+SEG_SMS = 132              # the H100's SMs, which B x slices x R should fill
+SEG_MAX_THREADS = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +70,44 @@ def histogram_plan(num_values: int) -> HistogramPlan:
     return HistogramPlan(cluster=HIST_CLUSTER, threads=HIST_THREADS,
                          bins_per_rank=-(-num_values // HIST_CLUSTER),
                          smem_bytes=4 * num_values)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """How csrc/segment.cu reduces (B, K) points into S segments."""
+    cluster: int         # R, blocks per (row, slice): one cluster
+    threads: int         # per block
+    chunk: int           # consecutive points of the row each block takes
+    slices: int          # slices of segments, one cluster each
+    segs_per_slice: int  # segments each slice's tables hold
+    segs_per_rank: int   # segments of its slice each block owns, writes
+    smem_bytes: int      # the block's two tables of its slice
+
+
+def segment_plan(b: int, k: int, s: int) -> SegmentPlan:
+    """Slices of at most SEG_MAX_SLICE segments; R the largest power of
+    two up to 16 with B x slices x R <= 132 SMs (and no more blocks than
+    warps of SEG_ITEMS points); block rank r takes points [r * chunk,
+    (r + 1) * chunk) of its row (chunk a multiple of 4, for 16-byte
+    loads), with threads enough for its chunk in one step where a block
+    holds that many, and owns segments [r * per_rank, (r + 1) * per_rank)
+    of its slice: the other blocks push their entries there into its
+    tables, and it writes them."""
+    if b < 1 or k < 0 or s < 1:
+        raise ValueError(f"segment_min_max takes B >= 1, K >= 0 and S >= 1,"
+                         f" got ({b}, {k}, {s})")
+    slices = -(-s // SEG_MAX_SLICE)
+    per_slice = -(-s // slices)
+    fit = max(1, min(SEG_SMS // (b * slices), -(-k // (32 * SEG_ITEMS))))
+    cluster = min(SEG_MAX_CLUSTER, 1 << (fit.bit_length() - 1))
+    chunk = -(-k // cluster)
+    chunk += -chunk % 4
+    threads = min(SEG_MAX_THREADS, max(32, -(-chunk // SEG_ITEMS)))
+    threads += -threads % 32
+    return SegmentPlan(cluster=cluster, threads=threads, chunk=chunk,
+                       slices=slices, segs_per_slice=per_slice,
+                       segs_per_rank=-(-per_slice // cluster),
+                       smem_bytes=8 * per_slice)
 
 
 def value_histogram_plain(values: torch.Tensor,
@@ -118,8 +168,11 @@ def _table_take_cm_cuda(table: torch.Tensor,
     _build.check_tensor(table, "table", torch.float32, (b, s, c), dev)
     _build.check_tensor(idx, "idx", torch.int32, (b, k), dev)
     out = torch.empty((b, c, k), dtype=torch.float32, device=dev)
-    _build.launch("rvt_table_take_cm", dev, table, idx, out, b, s, c, k)
+    made = ctypes.c_int(0)
+    _build.launch("rvt_table_take_cm", dev, table, idx, out,
+                  ctypes.addressof(made), b, s, c, k)
     take_launches.count += 1
+    take_launches.kernels += made.value
     return out
 
 
@@ -159,9 +212,16 @@ def _segment_min_max_cuda(seg: torch.Tensor, val: torch.Tensor,
     _build.check_tensor(val, "val", torch.int32, (b, k), dev)
     mn = torch.empty((b, num_segments), dtype=torch.int32, device=dev)
     mx = torch.empty((b, num_segments), dtype=torch.int32, device=dev)
-    _build.launch("rvt_segment_min_max", dev, seg, val, mn, mx, b, k,
-                  num_segments)
+    if b == 0 or num_segments == 0:
+        return mn, mx                       # no entry to write
+    plan = segment_plan(b, k, num_segments)
+    made = ctypes.c_int(0)
+    _build.launch("rvt_segment_min_max", dev, seg, val, mn, mx,
+                  ctypes.addressof(made), b, k, num_segments, plan.cluster,
+                  plan.threads, plan.chunk, plan.slices, plan.segs_per_slice,
+                  plan.segs_per_rank, plan.smem_bytes)
     minmax_launches.count += 1
+    minmax_launches.kernels += made.value
     return mn, mx
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """K1 adaptive_threshold, K2 rank_image, K3 boundary_compact, K4
-value_histogram, K6 propagate_fixpoint, K7 label_histogram, K8 propagate
-and K9 sort_tpu of several checkouts of the port, timed on one CUDA card
-on the same inputs, the device time apart from the host's enqueue.
+value_histogram, K6 propagate_fixpoint, K7 label_histogram, K8 propagate,
+K9 sort_tpu, K10 table_take_cm and K11 segment_min_max of several
+checkouts of the port, timed on one CUDA card on the same inputs, the
+device time apart from the host's enqueue.
 
     python3 scripts/mb_torch_kernel_versions.py ROOT [ROOT ...]
 
@@ -21,7 +22,10 @@ threshold planes, plain ranks and detector caps (K and the stage-A cap
 of the 1920x1080 bench batch and of four clutter frames, and random
 labels with some outside [0, N)) and K8's 640x400 planes (the 1280x800
 bench batch and four spiral planes, flat indices, 448 sweeps), which
-scripts/mb_torch_flood_phases.py takes too (flood_inputs). Then each
+scripts/mb_torch_flood_phases.py takes too (flood_inputs); K10's and
+K11's inputs at chip_smoke.py's shapes (K11 also random, and K4 on K11's
+sorted ids), which scripts/mb_torch_gather_phases.py takes too
+(gather_inputs). Then each
 ROOT, in the order given
 (so "OLD . . OLD" takes them in turns), runs in a process of its own that
 imports that root's package, builds its kernels, checks every call
@@ -99,6 +103,7 @@ def capture() -> None:
     saved["flood"] = {f"{kernel} {at}": (kernel, x)
                       for kernel, xs in flood_inputs(cs, dev).items()
                       for at, x in xs.items()}
+    saved["gather"] = gather_inputs(cs, dev)
     INPUTS.parent.mkdir(parents=True, exist_ok=True)
     torch.save(saved, INPUTS)
 
@@ -144,6 +149,71 @@ def flood_inputs(cs, dev) -> dict:
                 [cs.bench_scene(s)[0] for s in range(4)])).cpu(),
             "640x400 B=4 spiral, 448 sweeps": torch.from_numpy(np.repeat(
                 cs.spiral_plane(cs.H // 2, cs.W // 2), 4, 0))}}
+
+
+def gather_inputs(cs, dev) -> dict:
+    """K10's and K11's inputs at chip_smoke.py's shapes: K10 gathers a
+    (4, 1025, 4) f32 table (normal, sigma 100) at the (4, 32768) segment
+    ids of one use_pallas_sort cluster_and_fit call on the 1280x800 bench
+    batch; K11 takes the (4, 131072) segment ids of the 1920x1080 bench
+    batch's points sorted by key with their y coordinates (sorted ids in
+    [0, 1024]), and random ids in [-20, 1045) with values over the whole
+    int32 range. {input: (kernel, CPU tensors)}; cs is chip_smoke.py."""
+    import numpy as np
+    import torch
+    from ros_vision_tpu_torch.ops import frontend_kernel as fk
+    from ros_vision_tpu_torch.ops import quadfit as qf
+    from ros_vision_tpu_torch.ops import segments as segs
+    from ros_vision_tpu_torch.ops import threshold_kernel as tk
+
+    def points(w, h, noise, k):
+        g = torch.from_numpy(np.stack([cs.bench_scene(seed, w, h, noise)[0]
+                                       for seed in range(4)])).to(dev)
+        decim, th = tk.adaptive_threshold_plain(g)
+        ranks = fk.label_components_plain(th)[2].view(th.shape)
+        p_cap = qf.QuadFitConfig(max_points=k).max_boundary_pixels
+        key, pack2, _ = fk.boundary_compact(th, ranks, p_cap, k)
+        return key, pack2, decim
+
+    rng = np.random.default_rng(3)
+    key, pack2, decim = points(cs.W, cs.H, 1.0, 32768)
+    ids = cs.capture_calls({"key": key, "pack2": pack2}, decim,
+                           32768)["hists"][0]
+    table = torch.from_numpy(rng.normal(0, 100, (4, 1025, 4)).astype(
+        np.float32))
+    key_s, pack2_s = qf._sort2(*points(cs.W2, cs.H2, cs.NOISE_1080,
+                                       131072)[:2])
+    seg = segs.segment_ids_from_sorted_keys(
+        key_s, valid=key_s < qf.KEY_INVALID, max_segments=1024)
+    y = qf.unpack_payload(pack2_s)[1].contiguous()
+    rnd_seg = rng.integers(-20, 1045, (4, 131072)).astype(np.int32)
+    rnd_val = rng.integers(-2 ** 31, 2 ** 31 - 1, (4, 131072),
+                           dtype=np.int64).astype(np.int32)
+    return {
+        "1280x800 B=4 S=1025 C=4 K=32768": (
+            "table_take_cm", (table, ids.cpu())),
+        "1920x1080 B=4 S=1025 K=131072 (sorted ids)": (
+            "segment_min_max", (seg.cpu(), y.cpu())),
+        "1920x1080 B=4 S=1025 K=131072 (random ids)": (
+            "segment_min_max", (torch.from_numpy(rnd_seg),
+                                torch.from_numpy(rnd_val))),
+        "1920x1080 B=4 K=131072 (K11's sorted ids)": (
+            "value_histogram", (seg.cpu(),))}
+
+
+def gather_calls(kernel: str, xs):
+    """(kernel call, its outputs, the plain version's outputs) of K10, K11
+    or K4 (1025 bins) on the saved inputs xs."""
+    from ros_vision_tpu_torch.ops import gather_kernel as gk
+    if kernel == "table_take_cm":
+        return (lambda: gk.take_cm(*xs), (gk.take_cm(*xs),),
+                (gk.table_take_cm_plain(*xs),))
+    if kernel == "segment_min_max":
+        return (lambda: gk.segment_min_max(*xs, 1025),
+                gk.segment_min_max(*xs, 1025),
+                gk.segment_min_max_plain(*xs, 1025))
+    return (lambda: gk.histogram(*xs, 1025), (gk.histogram(*xs, 1025),),
+            (gk.value_histogram_plain(*xs, 1025),))
 
 
 def ccl_calls(kernel: str, th):
@@ -236,6 +306,10 @@ def time_root(root: Path) -> None:
     for at, (kernel, x) in saved["flood"].items():
         run, got, want = flood_calls(kernel, x.to(dev))
         cs.max_abs_err(f"{root}: {at}", got, want)
+        rows.append((kernel, at, cs.both_ms(run)))
+    for at, (kernel, xs) in saved["gather"].items():
+        run, got, want = gather_calls(kernel, [x.to(dev) for x in xs])
+        cs.max_abs_err(f"{root}: {kernel} at {at}", got, want)
         rows.append((kernel, at, cs.both_ms(run)))
     for kernel, at, t in rows:
         print(json.dumps(dict(root=str(root), kernel=kernel, at=at, **t)))

@@ -102,7 +102,7 @@ def _table_case(b=2, s=S, c=4, k=2048, seed=5):
     return table, idx
 
 
-@pytest.mark.parametrize("c", [1, 4, 9])
+@pytest.mark.parametrize("c", [1, 4, 9, 3, 5, 8])
 def test_table_take_cm_bit_exact(c):
     table, idx = _table_case(c=c)
     want = n(gp.table_take_cm(jnp.asarray(table), jnp.asarray(idx),
@@ -116,6 +116,27 @@ def test_table_take_cm_bit_exact(c):
         np.testing.assert_array_equal(want, got)
     assert gk.take_launches.count == before      # CPU tensor: plain version
     np.testing.assert_array_equal(want[:, :, :4], 0.0)
+
+
+@pytest.mark.parametrize("c", [1, 4, 9])
+@pytest.mark.parametrize("case", ["k2051", "all_out_of_range"])
+def test_table_take_cm_edges(case, c):
+    """A K that is no multiple of 4 (the kernel's scalar path) and indices
+    that all lie outside [0, S) (an output of zeros)."""
+    table, idx = _table_case(c=c, k=2051)
+    if case == "all_out_of_range":
+        rng = np.random.default_rng(2)
+        idx = rng.choice(np.array([-1, S, 2 ** 31 - 1, -(2 ** 31)]),
+                         idx.shape).astype(np.int32)
+    want = n(gp.table_take_cm(jnp.asarray(table), jnp.asarray(idx),
+                              interpret=True))
+    np.testing.assert_array_equal(
+        want, n(gp.table_take_cm_ref(jnp.asarray(table), jnp.asarray(idx))))
+    got = n(gk.take_cm(t(table), t(idx)))
+    assert got.shape == (2, c, 2051)
+    np.testing.assert_array_equal(want, got)
+    if case == "all_out_of_range":
+        assert (got == 0.0).all() and not np.signbit(got).any()
 
 
 def test_table_take_cm_non_finite_follows_ref():
@@ -147,9 +168,17 @@ def test_table_take_cm_of_noncontiguous_views():
     np.testing.assert_array_equal(want, n(gk.take_cm(tab_t, wide)))
 
 
-def _minmax_case(kind, b=2, k=4096, seed=9):
+# kind -> (B, K, S): a K that is no multiple of 4 or 8 (the kernel's
+# scalar path), one row, one segment, and S above segment_plan's cap of
+# segments a cluster holds (two slices)
+MINMAX_SHAPES = {"ragged_k": (2, 4098, S), "one_row": (1, 4096, S),
+                 "one_segment": (2, 4096, 1),
+                 "above_cap": (2, 4096, gk.SEG_MAX_SLICE + 1)}
+
+
+def _minmax_case(kind, b=2, k=4096, seed=9, s=S):
     rng = np.random.default_rng(seed)
-    seg = rng.integers(-20, S + 20, (b, k)).astype(np.int32)
+    seg = rng.integers(-20, s + 20, (b, k)).astype(np.int32)
     if kind == "sorted":
         seg = np.sort(rng.integers(0, 300, (b, k)), axis=1).astype(np.int32)
     val = rng.integers(-(2 ** 31), 2 ** 31 - 1, (b, k),
@@ -159,23 +188,29 @@ def _minmax_case(kind, b=2, k=4096, seed=9):
     return seg, val
 
 
-@pytest.mark.parametrize("kind", ["wide", "small", "sorted"])
+@pytest.mark.parametrize("kind", ["wide", "small", "sorted",
+                                  *MINMAX_SHAPES])
 def test_segment_min_max_bit_exact(kind):
-    seg, val = _minmax_case(kind)
-    want = gp.segment_min_max(jnp.asarray(seg), jnp.asarray(val), S,
+    b, k, s = MINMAX_SHAPES.get(kind, (2, 4096, S))
+    seg, val = _minmax_case(kind, b, k, s=s)
+    want = gp.segment_min_max(jnp.asarray(seg), jnp.asarray(val), s,
                               interpret=True)
-    ref = gp.segment_min_max_ref(jnp.asarray(seg), jnp.asarray(val), S)
+    ref = gp.segment_min_max_ref(jnp.asarray(seg), jnp.asarray(val), s)
     before = gk.minmax_launches.count
     for fn in (gk.segment_min_max_plain, gk.segment_min_max):
-        got = fn(t(seg), t(val), S)
+        got = fn(t(seg), t(val), s)
         for w, r, g in zip(want, ref, got, strict=True):
-            assert n(g).dtype == np.int32 and n(g).shape == (2, S)
+            assert n(g).dtype == np.int32 and n(g).shape == (b, s)
             np.testing.assert_array_equal(n(w), n(g))
             np.testing.assert_array_equal(n(r), n(g))
     assert gk.minmax_launches.count == before
     mn, mx = (n(x) for x in want)
     # values past +-2^30 are clamped; empty segments read +-2^30
-    assert mn.max() == 2 ** 30 and mx.min() == -2 ** 30
+    if s == 1:
+        # the one segment holds values past -2^30 and past 2^30
+        assert (mn < -2 ** 30).all() and (mx > 2 ** 30).all()
+    else:
+        assert mn.max() == 2 ** 30 and mx.min() == -2 ** 30
     if kind == "sorted":
         assert (mn[:, 300:] == 2 ** 30).all() and (mx[:, 300:] == -2 ** 30).all()
 
