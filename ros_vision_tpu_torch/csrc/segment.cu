@@ -22,12 +22,13 @@
 //     shared atomicMin / atomicMax; the last runs of a warp's lanes are
 //     merged with one __match_any_sync and __reduce_{min,max}_sync, and
 //     one leader a group updates the tables;
-//   - after cluster.sync(), block rank r owns segments
-//     [r * per_rank, (r + 1) * per_rank) of the slice, reduces them over
-//     the R tables through distributed shared memory and writes mn and mx
-//     with plain coalesced stores: every output entry is written exactly
-//     once, so there is no fill pass and no global atomic;
-//   - a second cluster.sync() keeps every table alive until it is read.
+//   - block rank r owns segments [r * per_rank, (r + 1) * per_rank) of the
+//     slice: every entry a block changed outside its own segments goes to
+//     its owner's tables with atomics on distributed shared memory;
+//   - after one cluster.sync() each owner writes its segments from its own
+//     tables with plain coalesced stores and exits: every output entry is
+//     written exactly once, so there is no fill pass and no global atomic,
+//     and no block reads another's shared memory after the barrier.
 // Min and max are order-independent, so the result is bit-exact whatever
 // the order.
 //
@@ -48,8 +49,8 @@ namespace cg = cooperative_groups;
 // rvt_segment_clocks(out) returns the five sums, the blocks, and the
 // first start and the last end on the global timer (ns) since the last
 // read. The phases: the tables' start; the points (loads, runs and
-// shared atomics); the first cluster.sync(); the owners' merge; the
-// second cluster.sync() (each up to a __syncthreads of this build).
+// shared atomics); the push to the owners; the cluster.sync(); the
+// owners' stores (each up to a __syncthreads of this build).
 #ifdef RVT_SEGMENT_PHASE_CLOCKS
 constexpr int kPhases = 5;
 __device__ unsigned long long g_segment_clocks[kPhases + 3];
@@ -210,29 +211,31 @@ __global__ void __launch_bounds__(kMaxThreads)
     fold_runs<kItems>(id, v, tmin, tmax, s0, ns_u, cur, lo, hi);
     merge_last_runs(cur, lo, hi, tmin, tmax, s0, ns_u, lane);
   }
-  RVT_PHASE_SYNC();
+  __syncthreads();
   phase_clock(2, since);
-  cluster.sync();
-  phase_clock(3, since);
-  // block rank r reduces its segments over the cluster's tables
-  const int c = (int)cluster.num_blocks();
-  int* om = mn + (size_t)row * s + s0;
-  int* ox = mx + (size_t)row * s + s0;
-  const int end = min(ns, (rank + 1) * per_rank);
-  for (int i = rank * per_rank + tid; i < end; i += blockDim.x) {
-    int lo = kBig, hi = -kBig;
-#pragma unroll 4
-    for (int q = 0; q < c; ++q) {
-      lo = min(lo, cluster.map_shared_rank(tmin, q)[i]);
-      hi = max(hi, cluster.map_shared_rank(tmax, q)[i]);
-    }
-    om[i] = lo;
-    ox[i] = hi;
+  // every entry this block changed outside its own segments goes to the
+  // owner's tables; after the cluster.sync() each owner's tables hold its
+  // segments' results
+  const int own0 = min(ns, rank * per_rank);
+  const int own1 = min(ns, own0 + per_rank);
+  for (int i = tid; i < ns; i += blockDim.x) {
+    if (i >= own0 && i < own1) continue;
+    const int q = i / per_rank;
+    if (tmin[i] != kBig)
+      atomicMin(cluster.map_shared_rank(tmin + i, q), tmin[i]);
+    if (tmax[i] != -kBig)
+      atomicMax(cluster.map_shared_rank(tmax + i, q), tmax[i]);
   }
   RVT_PHASE_SYNC();
-  phase_clock(4, since);
-  // keeps every table alive until it is read
+  phase_clock(3, since);
   cluster.sync();
+  phase_clock(4, since);
+  int* om = mn + (size_t)row * s + s0;
+  int* ox = mx + (size_t)row * s + s0;
+  for (int i = own0 + tid; i < own1; i += blockDim.x) {
+    om[i] = tmin[i];
+    ox[i] = tmax[i];
+  }
   RVT_PHASE_SYNC();
   phase_clock(5, since);
 }
