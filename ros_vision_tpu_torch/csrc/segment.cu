@@ -20,8 +20,11 @@
 //   - a thread folds runs of equal ids into one (min, max) in registers;
 //     every run but its last goes straight to the block's tables with
 //     shared atomicMin / atomicMax; the last runs of a warp's lanes are
-//     merged with one __match_any_sync and __reduce_{min,max}_sync, and
-//     one leader a group updates the tables;
+//     reduced over each group of neighbouring lanes that hold the same id
+//     (a segmented shuffle scan) and one lane a group updates the tables,
+//     so that sorted ids cost about one shared atomic per run and warp,
+//     and random ids at most one per point. (__match_any_sync in its place
+//     took ~3,000 more cycles a block, PERF.md §6, PR 8);
 //   - block rank r owns segments [r * per_rank, (r + 1) * per_rank) of the
 //     slice: every entry a block changed outside its own segments goes to
 //     its owner's tables with atomics on distributed shared memory;
@@ -128,17 +131,30 @@ __device__ __forceinline__ void fold_runs(const int* id, const int* v,
   }
 }
 
-// The lanes' last runs: lanes holding the same in-slice id reduce theirs,
-// and one leader a group updates the tables. Every lane must call it.
+// The lanes' last runs: each group of neighbouring lanes that hold the
+// same in-slice id reduces its runs by a segmented scan over shuffles, and
+// the group's last lane updates the tables. Every lane must call it.
 __device__ __forceinline__ void merge_last_runs(int cur, int lo, int hi,
                                                 int* tmin, int* tmax, int s0,
                                                 unsigned ns_u, int lane) {
   const unsigned local = (unsigned)cur - (unsigned)s0;
   const bool in = local < ns_u;
-  const unsigned peers = __match_any_sync(0xffffffffu, in ? (int)local : -1);
-  lo = __reduce_min_sync(peers, lo);
-  hi = __reduce_max_sync(peers, hi);
-  if (in && lane == __ffs(peers) - 1) {
+  const int key = in ? (int)local : -1;
+  const int before = __shfl_up_sync(0xffffffffu, key, 1);
+  const unsigned heads =
+      __ballot_sync(0xffffffffu, lane == 0 || before != key);
+  // the group's first lane: the last head at or below this lane
+  const int head = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int olo = __shfl_up_sync(0xffffffffu, lo, off);
+    const int ohi = __shfl_up_sync(0xffffffffu, hi, off);
+    if (lane - off >= head) {
+      lo = min(lo, olo);
+      hi = max(hi, ohi);
+    }
+  }
+  if (in && (lane == 31 || ((heads >> (lane + 1)) & 1u))) {
     atomicMin(tmin + local, lo);
     atomicMax(tmax + local, hi);
   }
@@ -174,7 +190,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int lo_pt = min(k, rank * chunk);
   const int hi_pt = min(k, lo_pt + chunk);
   // the loop bound is uniform over the block, so every lane of every warp
-  // reaches __match_any_sync together
+  // reaches the shuffles together
   for (int base = lo_pt; base < hi_pt; base += blockDim.x * kItems) {
     const int p0 = base + tid * kItems;
     int id[kItems], v[kItems];
@@ -283,7 +299,7 @@ extern "C" int rvt_segment_min_max(const int* seg, const int* val, int* mn,
   *launches = 0;
   cudaSetDevice(device);
   if (b == 0 || s == 0) return 0;
-  // the layout: whole warps (__match_any_sync over all 32 lanes); every
+  // the layout: whole warps (the shuffles span all 32 lanes); every
   // point in one block's chunk, whole 16-byte groups from a chunk's start;
   // every segment in one slice and one rank's part of it; both tables of
   // a slice in shared memory; point indices that stay inside an int
