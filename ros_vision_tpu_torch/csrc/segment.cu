@@ -94,7 +94,7 @@ __device__ __forceinline__ void phase_clock(int, long long&) {}
 
 namespace {
 
-constexpr int kItems = 16;         // consecutive points a thread loads
+constexpr int kItems = 8;          // consecutive points a thread loads
 constexpr int kMaxCluster = 16;    // the H100's, non-portable
 constexpr int kPortableCluster = 8;
 constexpr int kMaxThreads = 1024;

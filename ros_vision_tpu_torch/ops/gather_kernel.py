@@ -46,7 +46,7 @@ HIST_CLUSTER = 8           # blocks per row in csrc/histogram.cu
 HIST_THREADS = 1024
 HIST_MAX_BINS = 8192       # one shared-memory table of int32 bins
 SEG_MAX_CLUSTER = 16       # the H100's non-portable cluster size
-SEG_ITEMS = 16             # consecutive points a thread of segment.cu loads
+SEG_ITEMS = 8              # consecutive points a thread of segment.cu loads
 SEG_MAX_SLICE = 4096       # segments a cluster's tables hold (32 KB a block)
 SEG_SMS = 132              # the H100's SMs, which B x slices x R should fill
 SEG_MAX_THREADS = 1024
