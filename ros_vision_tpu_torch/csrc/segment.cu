@@ -23,8 +23,9 @@
 //     reduced over each group of neighbouring lanes that hold the same id
 //     (a segmented shuffle scan) and one lane a group updates the tables,
 //     so that sorted ids cost about one shared atomic per run and warp,
-//     and random ids at most one per point. (__match_any_sync in its place
-//     took ~3,000 more cycles a block, PERF.md §6, PR 8);
+//     and random ids at most one per point (__match_any_sync in its place
+//     made a block of the path's ids ~2,200 cycles slower on average, and
+//     the points phase on random ids 2.2x as long: PERF.md §6, PR 8);
 //   - block rank r owns segments [r * per_rank, (r + 1) * per_rank) of the
 //     slice: every entry a block changed outside its own segments goes to
 //     its owner's tables with atomics on distributed shared memory;
