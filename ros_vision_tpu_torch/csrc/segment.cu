@@ -9,7 +9,8 @@
 // it has no scatter-min. Bound on the H100: bytes, seg and val read once
 // (1 MB per 131,072-point row) and the two (B, S) tables written once; a
 // row's points go to one cluster, so the rate one SM pulls from L2
-// (~18-20 B a clock measured here) and the launch weigh more.
+// (at most ~19 B a clock in its points phase, PERF.md §6, PR 8) and the
+// launch weigh more.
 // Design: one launch, one thread-block cluster of R blocks (R <= 16, a
 // non-portable size above 8) per (row, slice of at most 4,096 segments),
 // grid (R, B, slices):
