@@ -14,10 +14,11 @@
 // Design: one launch, one thread-block cluster of R blocks (R <= 16, a
 // non-portable size above 8) per (row, slice of at most 4,096 segments),
 // grid (R, B, slices):
-//   - each block starts both tables of its slice at +-2^30 in shared
-//     memory and takes one contiguous chunk of the row; each thread loads
+//   - each block takes one contiguous chunk of the row; each thread loads
 //     `kItems` consecutive points (16-byte loads of seg and of val, all
-//     issued before any reduction; scalar loads at a ragged edge);
+//     issued before any reduction; scalar loads at a ragged edge), its
+//     first step's before the block starts both tables of its slice at
+//     +-2^30 in shared memory and arrives at a split cluster barrier;
 //   - a thread folds runs of equal ids into one (min, max) in registers;
 //     every run but its last goes straight to the block's tables with
 //     shared atomicMin / atomicMax; the last runs of a warp's lanes are
@@ -29,7 +30,15 @@
 //     the points phase on random ids 2.2x as long: PERF.md §6, PR 8);
 //   - block rank r owns segments [r * per_rank, (r + 1) * per_rank) of the
 //     slice: every entry a block changed outside its own segments goes to
-//     its owner's tables with atomics on distributed shared memory;
+//     its owner's tables with atomics on distributed shared memory. Before
+//     that push a block waits at the split barrier for every peer's
+//     arrival: a push into a peer that has not started, or one that its
+//     start would overwrite with +-2^30, would be lost. Between the arrive
+//     and the wait lies the points phase, so the wait costs little. A
+//     release arrive on every thread cost ~1,230 cycles a block (its
+//     fence) and 0.0006 ms a call; one thread's fence before a relaxed
+//     arrive, behind the first loads, costs nothing measurable (PERF.md
+//     §6, PR 8);
 //   - after one cluster.sync() each owner writes its segments from its own
 //     tables with plain coalesced stores and exits: every output entry is
 //     written exactly once, so there is no fill pass and no global atomic,
@@ -41,10 +50,11 @@
 // rank, shared bytes) is ops/gather_kernel.py segment_plan's;
 // rvt_segment_min_max takes it as given and checks only what the device
 // and the kernel's layout require.
-#include <atomic>
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -54,8 +64,9 @@ namespace cg = cooperative_groups;
 // rvt_segment_clocks(out) returns the five sums, the blocks, and the
 // first start and the last end on the global timer (ns) since the last
 // read. The phases: the tables' start; the points (loads, runs and
-// shared atomics); the push to the owners; the cluster.sync(); the
-// owners' stores (each up to a __syncthreads of this build).
+// shared atomics); the wait for the peers' starts and the push to the
+// owners; the cluster.sync(); the owners' stores (each up to a
+// __syncthreads of this build).
 #ifdef RVT_SEGMENT_PHASE_CLOCKS
 constexpr int kPhases = 5;
 __device__ unsigned long long g_segment_clocks[kPhases + 3];
@@ -97,13 +108,61 @@ __device__ __forceinline__ void phase_clock(int, long long&) {}
 namespace {
 
 constexpr int kItems = 8;          // consecutive points a thread loads
-constexpr int kMaxCluster = 16;    // the H100's, non-portable
-constexpr int kPortableCluster = 8;
 constexpr int kMaxThreads = 1024;
 constexpr int kSmemLimit = 48 * 1024;  // a block's shared memory, no opt-in
-constexpr int kMaxDevices = 64;
-constexpr int kClusterUnplaceable = -1;
 constexpr int kBig = 1 << 30;
+
+// The halves of a cluster barrier (barrier.cluster, acquire on wait);
+// every thread of the cluster calls each once, in order, before the next
+// cluster.sync(). The arrive is relaxed: the block's thread 0 alone fences
+// (fence.acq_rel.cluster, cumulative over the writes the block's
+// __syncthreads() made visible to it) before it arrives, so that one warp,
+// not every warp, waits out the fence.
+__device__ __forceinline__ void cluster_arrive() {
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Loads kItems consecutive points from p0: 16-byte loads of seg and of val
+// where the group lies before `end` (and kVec), else scalar loads; past
+// `end` an id of -1, which lies outside every slice, so nothing is added.
+template <bool kVec>
+__device__ __forceinline__ void load_points(const int* __restrict__ sg,
+                                            const int* __restrict__ vl,
+                                            int p0, int end, int* id,
+                                            int* v) {
+  if (kVec && p0 + kItems <= end) {
+    const int4* s4 = reinterpret_cast<const int4*>(sg + p0);
+    const int4* v4 = reinterpret_cast<const int4*>(vl + p0);
+    int4 a[kItems / 4], b[kItems / 4];
+#pragma unroll
+    for (int j = 0; j < kItems / 4; ++j) {
+      a[j] = __ldg(s4 + j);
+      b[j] = __ldg(v4 + j);
+    }
+#pragma unroll
+    for (int j = 0; j < kItems / 4; ++j) {
+      id[4 * j] = a[j].x;
+      id[4 * j + 1] = a[j].y;
+      id[4 * j + 2] = a[j].z;
+      id[4 * j + 3] = a[j].w;
+      v[4 * j] = b[j].x;
+      v[4 * j + 1] = b[j].y;
+      v[4 * j + 2] = b[j].z;
+      v[4 * j + 3] = b[j].w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const bool in = p0 + j < end;
+      id[j] = in ? __ldg(sg + p0 + j) : -1;
+      v[j] = in ? __ldg(vl + p0 + j) : 0;
+    }
+  }
+}
 
 // Folds n consecutive points (id, v) into runs of equal ids: every run but
 // the last goes to the tables with shared atomics; the last is returned.
@@ -181,59 +240,37 @@ __global__ void __launch_bounds__(kMaxThreads)
   const unsigned ns_u = (unsigned)ns;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  const int* sg = seg + (size_t)row * k;
+  const int* vl = val + (size_t)row * k;
+  const int lo_pt = min(k, rank * chunk);
+  const int hi_pt = min(k, lo_pt + chunk);
+  const int step = blockDim.x * kItems;
+  // the first step's loads go out before the tables' start: their latency
+  // hides the release fence of the cluster barrier's arrive
+  int id[kItems], v[kItems];
+  load_points<kVec>(sg, vl, lo_pt + tid * kItems, hi_pt, id, v);
   for (int i = tid; i < ns; i += blockDim.x) {
     tmin[i] = kBig;
     tmax[i] = -kBig;
   }
   __syncthreads();
+  cluster_arrive();
   phase_clock(1, since);
-  const int* sg = seg + (size_t)row * k;
-  const int* vl = val + (size_t)row * k;
-  const int lo_pt = min(k, rank * chunk);
-  const int hi_pt = min(k, lo_pt + chunk);
   // the loop bound is uniform over the block, so every lane of every warp
   // reaches the shuffles together
-  for (int base = lo_pt; base < hi_pt; base += blockDim.x * kItems) {
-    const int p0 = base + tid * kItems;
-    int id[kItems], v[kItems];
-    if (kVec && p0 + kItems <= hi_pt) {
-      const int4* s4 = reinterpret_cast<const int4*>(sg + p0);
-      const int4* v4 = reinterpret_cast<const int4*>(vl + p0);
-      int4 a[kItems / 4], b[kItems / 4];
-#pragma unroll
-      for (int j = 0; j < kItems / 4; ++j) {
-        a[j] = __ldg(s4 + j);
-        b[j] = __ldg(v4 + j);
-      }
-#pragma unroll
-      for (int j = 0; j < kItems / 4; ++j) {
-        id[4 * j] = a[j].x;
-        id[4 * j + 1] = a[j].y;
-        id[4 * j + 2] = a[j].z;
-        id[4 * j + 3] = a[j].w;
-        v[4 * j] = b[j].x;
-        v[4 * j + 1] = b[j].y;
-        v[4 * j + 2] = b[j].z;
-        v[4 * j + 3] = b[j].w;
-      }
-    } else {
-      // -1 lies outside every slice, so past the chunk nothing is added
-#pragma unroll
-      for (int j = 0; j < kItems; ++j) {
-        const bool in = p0 + j < hi_pt;
-        id[j] = in ? __ldg(sg + p0 + j) : -1;
-        v[j] = in ? __ldg(vl + p0 + j) : 0;
-      }
-    }
+  for (int base = lo_pt; base < hi_pt; base += step) {
+    if (base != lo_pt)
+      load_points<kVec>(sg, vl, base + tid * kItems, hi_pt, id, v);
     int cur, lo, hi;
     fold_runs<kItems>(id, v, tmin, tmax, s0, ns_u, cur, lo, hi);
     merge_last_runs(cur, lo, hi, tmin, tmax, s0, ns_u, lane);
   }
   __syncthreads();
   phase_clock(2, since);
-  // every entry this block changed outside its own segments goes to the
-  // owner's tables; after the cluster.sync() each owner's tables hold its
-  // segments' results
+  // every peer's tables have started; every entry this block changed
+  // outside its own segments goes to the owner's tables; after the
+  // cluster.sync() each owner's tables hold its segments' results
+  cluster_wait();
   const int own0 = min(ns, rank * per_rank);
   const int own1 = min(ns, own0 + per_rank);
   for (int i = tid; i < ns; i += blockDim.x) {
@@ -258,34 +295,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   phase_clock(5, since);
 }
 
-// Once per process, device, kernel and cluster size: that the device can
-// place such a cluster of the largest blocks a plan may ask for (1,024
-// threads, the 48 KB of shared memory a block has without opting in), so
-// that it can place any plan's.
-template <bool kVec>
-int prepare(int device, const cudaLaunchConfig_t& cfg, int cluster) {
-  static std::atomic<int> placed[kMaxDevices][kMaxCluster + 1];
-  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (placed[device][cluster].load(std::memory_order_acquire)) return 0;
-  cudaError_t err = cudaSuccess;
-  if (cluster > kPortableCluster)
-    err = cudaFuncSetAttribute(segment_minmax_kernel<kVec>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t one = cfg;
-  one.gridDim = dim3(cluster, 1, 1);
-  one.blockDim = dim3(kMaxThreads, 1, 1);
-  one.dynamicSmemBytes = kSmemLimit;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters,
-                                       segment_minmax_kernel<kVec>, &one);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return kClusterUnplaceable;
-  placed[device][cluster].store(1, std::memory_order_release);
-  return 0;
-}
-
 }  // namespace
 
 // seg, val (B, K); mn, mx (B, S); cluster, threads, chunk, slices,
@@ -306,7 +315,7 @@ extern "C" int rvt_segment_min_max(const int* seg, const int* val, int* mn,
   // every segment in one slice and one rank's part of it; both tables of
   // a slice in shared memory; point indices that stay inside an int
   if (b < 0 || b > 65535 || k < 0 || k > (1 << 30) || s < 0 ||
-      cluster < 1 || cluster > kMaxCluster || threads < 32 ||
+      cluster < 1 || cluster > rvt::kMaxClusterBlocks || threads < 32 ||
       threads % 32 != 0 || threads > kMaxThreads || chunk < 0 ||
       chunk % 4 != 0 || (long long)chunk * cluster < k || slices < 1 ||
       slices > 65535 || per_slice < 1 ||
@@ -328,14 +337,17 @@ extern "C" int rvt_segment_min_max(const int* seg, const int* val, int* mn,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const int err = vec ? prepare<true>(device, cfg, cluster)
-                      : prepare<false>(device, cfg, cluster);
+  // placeable at the largest blocks a plan may ask for, so at any plan's
+  const int err =
+      vec ? rvt::cluster_placeable<segment_minmax_kernel<true>>(
+                device, cfg, cluster, kMaxThreads, kSmemLimit)
+          : rvt::cluster_placeable<segment_minmax_kernel<false>>(
+                device, cfg, cluster, kMaxThreads, kSmemLimit);
   if (err != 0) return err;
-  const cudaError_t rc =
-      vec ? cudaLaunchKernelEx(&cfg, segment_minmax_kernel<true>, seg, val,
-                               mn, mx, k, s, chunk, per_slice, per_rank)
-          : cudaLaunchKernelEx(&cfg, segment_minmax_kernel<false>, seg, val,
-                               mn, mx, k, s, chunk, per_slice, per_rank);
+  const auto kernel =
+      vec ? segment_minmax_kernel<true> : segment_minmax_kernel<false>;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, kernel, seg, val, mn, mx, k, s, chunk, per_slice, per_rank);
   *launches = rc == cudaSuccess;
   return (int)rc;
 }

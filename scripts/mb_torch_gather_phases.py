@@ -1,170 +1,37 @@
 #!/usr/bin/env python3
 """Where the device time of K10 table_take_cm and K11 segment_min_max
-goes, launch by launch, beside the launch floor, on one CUDA card.
+goes, launch by launch, beside the launch floor, on one CUDA card: an
+entry of scripts/mb_torch_phases.py, which says how each ROOT is run.
 
     python3 scripts/mb_torch_gather_phases.py [ROOT ...]
 
-Each ROOT (default `.`) is the top of a checkout that holds
-ros_vision_tpu_torch/, for instance an older commit unpacked with `git
-archive` under build/. First this checkout captures on the card the
-inputs that scripts/mb_torch_kernel_versions.py gather_inputs makes:
-K10's (4, 1025, 4) table and (4, 32768) segment ids at 1280x800, K11's
-(4, 131072) sorted segment ids and y coordinates at 1920x1080 and its
-random ids and values, and K4 on K11's sorted ids (1025 bins). Then each
-ROOT, in the order given, runs in a process of its own that imports that
-root's package and, for each input:
-
-- checks the kernel bit-exact against the root's plain version;
-- runs the calls under torch.profiler and reports each device operation
-  (kernel or memset, by name) with its device time and launches per
-  call, and the whole call's device and call time from
-  chip_smoke.both_ms.
-
-The same process times the launch floor the same two ways: a
-torch.cuda._sleep(0), one launch of a kernel that does nothing. Where the
-root's csrc/segment.cu has the RVT_SEGMENT_PHASE_CLOCKS build flag, a
-further process builds the kernels again with it (a library of its own
-under build/) and reports K11's cycles per block in each phase -- the
-tables' start, the points, the push to the owners' tables, the
-cluster.sync(), the owners' stores -- and the span of the call from its
-first block's start to its last block's end on the global timer. That
-build's kernel time is not reported: its clocks perturb it.
-Prints one JSON line per root and input (and one for the floor), then
-the card's name and power limit; exits nonzero without a card or if a
-kernel disagrees.
+The inputs are those scripts/mb_torch_kernel_versions.py gather_inputs
+makes: K10's (4, 1025, 4) table and (4, 32768) segment ids at 1280x800,
+K11's (4, 131072) sorted segment ids and y coordinates at 1920x1080 and
+its random ids and values, and K4 on K11's sorted ids (1025 bins). Each
+root's K11 is also timed by phase from a -DRVT_SEGMENT_PHASE_CLOCKS build
+of its csrc/segment.cu: the tables' start, the points, the push to the
+owners' tables (after the wait for the peers' starts, where the kernel
+has one), the cluster.sync(), the owners' stores.
 """
 from __future__ import annotations
 
-import ctypes
-import importlib.util
-import json
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-INPUTS = ROOT / "build" / "mb_torch_gather_phases" / "inputs.pt"
-CLOCK_FLAG = "RVT_SEGMENT_PHASE_CLOCKS"
-PHASES = ("tables", "points", "push", "cluster_sync", "stores")
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import mb_torch_phases as phases  # noqa: E402
 
-
-def load(name: str, path: Path):
-    """A module of this checkout loaded from its file, so that
-    ros_vision_tpu_torch still resolves to the root under test."""
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def versions():
-    return load("mb_torch_kernel_versions",
-                ROOT / "scripts" / "mb_torch_kernel_versions.py")
-
-
-def capture() -> None:
-    """Save K10's, K11's and K4's inputs, as mb_torch_kernel_versions.py
-    captures them."""
-    sys.path.insert(0, str(ROOT))
-    import torch
-    from ros_vision_tpu_torch.device import require_cuda
-    saved = versions().gather_inputs(
-        load("chip_smoke", ROOT / "chip_smoke.py"), require_cuda())
-    INPUTS.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(saved, INPUTS)
-
-
-def time_root(root: Path) -> None:
-    """Check and time root's K10, K11 and K4 on the saved inputs, one
-    device operation at a time, and the launch floor."""
-    sys.path.insert(0, str(root))
-    import torch
-    import ros_vision_tpu_torch
-    cs = load("chip_smoke", ROOT / "chip_smoke.py")
-    phases = load("mb_torch_ccl_phases",
-                  ROOT / "scripts" / "mb_torch_ccl_phases.py")
-    cs.check(Path(ros_vision_tpu_torch.__file__).resolve().is_relative_to(
-        root.resolve()), f"ros_vision_tpu_torch imported from "
-        f"{ros_vision_tpu_torch.__file__}, not from {root}")
-    dev = torch.device("cuda", 0)
-    floor = lambda: torch.cuda._sleep(0)   # noqa: E731
-    print(json.dumps(dict(root=str(root), kernel="launch floor",
-                          at="torch.cuda._sleep(0)",
-                          ops=phases.profile_ops(floor),
-                          **cs.both_ms(floor))), flush=True)
-    for at, (kernel, xs) in torch.load(INPUTS).items():
-        run, got, want = versions().gather_calls(
-            kernel, [x.to(dev) for x in xs])
-        cs.max_abs_err(f"{root} {kernel} {at}", got, want)
-        ops = phases.profile_ops(run)
-        cs.check(ops, f"{root} {kernel} {at}: the profiler recorded no "
-                 "device operation")
-        print(json.dumps(dict(
-            root=str(root), kernel=kernel, at=at, ops=ops,
-            ops_ms=sum(o["ms"] for o in ops.values()),
-            launches=sum(o["launches"] for o in ops.values()),
-            **cs.both_ms(run))), flush=True)
-
-
-def clocks_root(root: Path) -> None:
-    """Cycles per block by phase of root's K11 from a build with
-    -DRVT_SEGMENT_PHASE_CLOCKS."""
-    sys.path.insert(0, str(root))
-    import torch
-    from ros_vision_tpu_torch import _build
-    _build.LIBRARY = _build.KernelLibrary(
-        flags=_build.NVCC_FLAGS + (f"-D{CLOCK_FLAG}",))
-    _build._FUNCS.clear()
-    read = _build.LIBRARY.get().rvt_segment_clocks
-    read.argtypes = [ctypes.c_void_p]
-    buf = (ctypes.c_ulonglong * (len(PHASES) + 3))()
-    dev = torch.device("cuda", 0)
-    for at, (kernel, xs) in torch.load(INPUTS).items():
-        if kernel != "segment_min_max":
-            continue
-        run = versions().gather_calls(kernel, [x.to(dev) for x in xs])[0]
-        run()
-        torch.cuda.synchronize()
-        read(ctypes.addressof(buf))                  # zero the clocks
-        run()
-        torch.cuda.synchronize()
-        if read(ctypes.addressof(buf)) != 0:
-            raise RuntimeError("reading the clocks failed")
-        sums = list(buf)
-        blocks = sums[len(PHASES)]
-        print(json.dumps(dict(
-            root=str(root), kernel=kernel, at=at, block_launches=blocks,
-            cycles_per_block={k: v / blocks for k, v in zip(PHASES, sums)},
-            span_ms=(sums[-1] - sums[-2]) / 1e6)), flush=True)
-
-
-def main(argv: list[str]) -> int:
-    if argv[:1] == ["--capture"]:
-        capture()
-        return 0
-    modes = {"--time": time_root, "--clocks": clocks_root}
-    if argv[:1] and argv[0] in modes:
-        modes[argv[0]](Path(argv[1]))
-        return 0
-    me = [sys.executable, str(Path(__file__).resolve())]
-    subprocess.run(me + ["--capture"], check=True)
-    for root in argv or ["."]:
-        todo = ["--time"]
-        src = Path(root) / "ros_vision_tpu_torch" / "csrc" / "segment.cu"
-        if CLOCK_FLAG in src.read_text():
-            todo.append("--clocks")
-        for mode in todo:
-            run = subprocess.run(me + [mode, root], capture_output=True,
-                                 text=True)
-            sys.stdout.write(run.stdout)
-            if run.returncode != 0:
-                sys.stderr.write(run.stderr)
-                return run.returncode
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
-    return 0
-
+ENTRY = phases.Entry(
+    name="mb_torch_gather_phases",
+    inputs=lambda versions, cs, dev: versions.gather_inputs(cs, dev),
+    calls=lambda versions, kernel, xs: versions.gather_calls(kernel, xs),
+    source="segment.cu",
+    clock_flag="RVT_SEGMENT_PHASE_CLOCKS",
+    clock_export="rvt_segment_clocks",
+    phases=("tables", "points", "push", "cluster_sync", "stores"),
+    clocked=("segment_min_max",),
+    floor=True)
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(phases.main(ENTRY, __file__, sys.argv[1:]))

@@ -6,7 +6,8 @@ in interpret mode and segment_min_max_ref. The card runs the kernel itself
 a chunk, run or table bug shows here without a card.
 
 One cluster of R blocks takes a (row, slice of segments): block rank r
-starts both tables of the slice at +-2^30, takes points [r * chunk,
+starts both tables of the slice at +-2^30 (every block's start precedes
+every push, as the kernel's split cluster barrier ensures), takes points [r * chunk,
 (r + 1) * chunk) of the row in steps of threads x SEG_ITEMS, each thread
 SEG_ITEMS consecutive points (-1, outside every slice, past the chunk),
 folds runs of equal ids in registers, adds every run but its last to its
