@@ -73,10 +73,30 @@ Phases, each of which raises (and so exits nonzero) on failure:
      broadcast="flood" (K6, K7), each held against the plain CCL;
   5. system: the port's VisionSystem with 4 mock cameras at 1280x800, each
      showing its own tags, spun for >= 20 batches; each camera publishes
-     its own ids with finite robot-frame poses.
+     its own ids with finite robot-frame poses;
+  6. rectify (ops/rectify.py) at 1280x800 B=4 on the lens of
+     tests/test_rectify.py scaled to 1280 px (k1 = -0.25): Rectifier alone
+     and behind each Bayer pattern's debayer, within 1 grey level of the
+     same Rectifier on the CPU (the share of pixels that differ printed),
+     none of the port's kernels launched; then the bench tags rendered at
+     their lens-distorted corners, rectified on the card and detected by
+     TorchDetector: the bench ids in every row, corners within 1 px of the
+     ideal ones, the 1280x800 path's kernels launched;
+  7. game piece: YOLOv11n at 640x640, one class, seeded weights (BatchNorm
+     and head biases drawn too), bf16 — the deployed gamepiece_yolo11n
+     configuration. 1280x800 BGR frames through preprocess_device, infer
+     and the scale-back at B=1 and B=4, none of the port's kernels
+     launched; the card's raw (B, 5, 8400) within GP_BF16_TOL of the
+     port's f32 forward on the CPU, and the card's f32 forward (TF32 off)
+     within GP_F32_TOL; the card's NMS on the CPU's raw output equal to
+     the CPU's in every slot; the weights through save_params /
+     load_params give identical outputs; GamePieceNode.process_frame where
+     cv2 imports; ms/frame of infer (forward + NMS) and of the NMS alone at
+     B=1 and B=4, medians of 20, and the device-busy share and top device
+     operations from torch.profiler.
 K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
-Every path of phases 3-5 runs with the launch counts set to 0 just before
+Every path of phases 3-7 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
 K6, K7, K10 and K11 report equal their fixed number per call times the
@@ -116,6 +136,18 @@ CORE_OPS_S = 67e12
 # a clock on 132 SMs at the 1.98 GHz boost clock (a second figure for K8's
 # bound, printed beside bound_ms)
 INT32_OPS_S = 64 * 132 * 1.98e9
+# the lens of tests/test_rectify.py (fx = fy = 300 at 320 px wide, k1 =
+# -0.25) scaled 4x to 1280 px wide, centred on the 1280x800 frame
+LENS = dict(fx=1200.0, fy=1200.0, cx=640.0, cy=400.0)
+LENS_DIST = (-0.25, 0.08, 0.001, -0.001, 0.0)
+BAYER = ("RGGB", "BGGR", "GRBG", "GBRG")
+# YOLOv11n game-piece engine, the deployed gamepiece_yolo11n configuration
+GP_SIZE = 640
+# card bf16 against the CPU's f32 forward: boxes (input px) and scores;
+# bf16 against f32 measured 0.12 px and 5.8e-4 on the CPU
+GP_BF16_TOL = (1.0, 5e-3)
+# card f32 (cuDNN, TF32 off) against the CPU's f32 forward
+GP_F32_TOL = (0.1, 1e-4)
 # kernels each path must launch; every other kernel must not launch there
 PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
             "value_histogram"}
@@ -1313,6 +1345,309 @@ def system_phase(dev, min_batches: int = 20):
     return counts, dict(fps_per_camera=fps, p50_latency_ms=p50)
 
 
+def rectify_phase(dev, bench4, placed):
+    """ops/rectify.py at 1280x800 B=4: Rectifier (remap alone, then behind
+    each Bayer pattern's debayer, the bench frames taken as mosaics) on the
+    card against the same Rectifier on the CPU, <= 1 grey level, none of
+    the port's kernels launched; then the bench tags rendered at their
+    lens-distorted corners, rectified on the card and detected by
+    TorchDetector: the bench ids in every row, corners within 1 px of the
+    ideal (undistorted) ones."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag import geometry
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+    from ros_vision_tpu_torch.apriltag.render import render_scene
+    from ros_vision_tpu_torch.ops import rectify
+
+    g = torch.from_numpy(bench4).to(dev)
+    c = torch.from_numpy(bench4)
+    out, paths = {}, {}
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    for pattern in (None,) + BAYER:
+        rec = rectify.Rectifier(W, H, **LENS, dist=LENS_DIST,
+                                bayer_pattern=pattern, device=dev)
+        cpu = rectify.Rectifier(W, H, **LENS, dist=LENS_DIST,
+                                bayer_pattern=pattern, device="cpu")
+        got = rec(g)
+        check(got.device == g.device and got.dtype == torch.uint8
+              and tuple(got.shape) == bench4.shape,
+              f"rectify {pattern}: {got.device} {got.dtype} "
+              f"{tuple(got.shape)}")
+        d = (got.cpu().to(torch.int32) - cpu(c).to(torch.int32)).abs()
+        worst, share = int(d.max()), float((d > 0).float().mean())
+        check(worst <= 1, f"rectify {pattern}: {worst} grey levels from "
+              "the CPU")
+        ms = call_ms(lambda: rec(g))
+        name = f"debayer {pattern} + remap" if pattern else "remap"
+        out[name] = dict(ms_per_call=ms, max_grey_diff=worst,
+                         share_differing=share)
+        print(f"  {name} B=4: <= {worst} grey level from the CPU, "
+              f"{share:.6%} of pixels differ; {ms:.4f} ms/call (median of "
+              f"{REPS}, CUDA events)")
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    check_kernel_set("rectify", counts, set())
+    paths["rectify"] = counts
+
+    ideal = [p.corners for p in placed]
+    ids = [p.tag_id for p in placed]
+    warped = [geometry.distort_points(q, LENS["fx"], LENS["fy"], LENS["cx"],
+                                      LENS["cy"], np.asarray(LENS_DIST))
+              for q in ideal]
+    frames = np.stack([render_scene(ids, warped, W, H, noise_sigma=1.0,
+                                    seed=s)[0] for s in range(4)])
+    rec = rectify.Rectifier(W, H, **LENS, dist=LENS_DIST, device=dev)
+    det = TorchDetector(device=dev, width=W, height=H, **LENS)
+    gw = torch.from_numpy(frames).to(dev)
+    det.detect(rec(gw))                                   # warm-up
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    rows = det.detect(rec(gw))
+    counts = _build.counts()
+    check_kernel_set("rectified detector", counts, PATH_800)
+    check_device_launches("rectified detector", counts)
+    paths["rectified detector 1280x800"] = counts
+    shift = max(float(np.abs(w_ - q).max()) for w_, q in zip(warped, ideal))
+    worst = 0.0
+    for i, dets in enumerate(rows):
+        got_ids = [d.tag_id for d in dets]
+        check(got_ids == BENCH_IDS, f"rectified row {i}: ids {got_ids}")
+        err = match_corners(dets, placed, 1.0, f"rectified row {i}")
+        worst = max(worst, err)
+        print(f"  rectified bench scene row {i}: ids {got_ids}, corners "
+              f"{err:.4f} px from the ideal ones (the lens moved them up "
+              f"to {shift:.2f} px)")
+    out["rectified_max_corner_err_px"] = worst
+    return out, paths
+
+
+def seeded_game_piece_weights(engine, seed: int = 1):
+    """The engine's seeded init with its BatchNorm statistics and affine
+    params and the head's biases drawn from a seeded generator too: the
+    init's identity BatchNorm gives every anchor a score of ~0.5 and the
+    same box, which no comparison could tell apart."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in engine.model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                for t, lo, hi in ((mod.weight, 0.5, 1.5),
+                                  (mod.bias, -0.3, 0.3),
+                                  (mod.running_mean, -0.5, 0.5),
+                                  (mod.running_var, 0.5, 2.0)):
+                    t.copy_(torch.rand(t.shape, generator=gen)
+                            * (hi - lo) + lo)
+            elif isinstance(mod, torch.nn.Conv2d) and mod.bias is not None:
+                mod.bias.copy_(torch.rand(mod.bias.shape, generator=gen)
+                               * 2 - 1)
+    path = ROOT / "build" / "chip_smoke" / "gamepiece_yolo11n_seeded.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    engine.save_params(str(path))
+    engine.load_params(str(path))
+    return path
+
+
+def game_piece_frames(b: int) -> np.ndarray:
+    """(b, 800, 1280, 3) uint8 BGR frames: the bench scene in grey with an
+    orange game piece at a place of its own in each frame."""
+    frames = []
+    for i in range(b):
+        img, _ = bench_scene(i)
+        bgr = np.repeat(img[..., None], 3, -1)
+        x, y = 120 + 260 * i, 480 - 90 * i
+        bgr[y:y + 150, x:x + 200] = (25, 100, 230)
+        frames.append(bgr)
+    return np.stack(frames)
+
+
+def device_busy_share(fn, calls: int = 10) -> tuple:
+    """(busy share, device ms per call, device launches per call, the
+    top device operations): fn()'s kernels under torch.profiler, their
+    device time over the host time of the window, `calls` calls ended by a
+    synchronize; (None, None, None, []) where the profiler saw no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "device_time_total", None)
+            ops.append((e.cuda_time_total if us is None else us, e.count,
+                        e.key))
+    busy_us = sum(o[0] for o in ops)
+    if busy_us <= 0:
+        return None, None, None, []
+    top = [(key[:60], us / 1e3 / calls, count / calls)
+           for us, count, key in sorted(ops, reverse=True)[:6]]
+    return (busy_us / wall_us, busy_us / 1e3 / calls,
+            sum(o[1] for o in ops) / calls, top)
+
+
+def game_piece_phase(dev):
+    """models/infer.py + ops/nms.py + runtime/game_piece_node.py: YOLOv11n
+    at 640x640, one class, seeded weights, bf16 on the card."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.models.infer import ModelInference
+    from ros_vision_tpu_torch.ops import nms
+
+    engine = ModelInference(num_classes=1, scale="n", img_size=GP_SIZE,
+                            class_names=["ball"], device=dev)
+    check(engine.dtype == torch.bfloat16 and engine.device == dev,
+          f"engine {engine.dtype} on {engine.device}")
+    npz = seeded_game_piece_weights(engine)
+    cpu = ModelInference(num_classes=1, scale="n", img_size=GP_SIZE,
+                         class_names=["ball"], params_path=str(npz),
+                         dtype=torch.float32, device="cpu")
+    f32 = ModelInference(num_classes=1, scale="n", img_size=GP_SIZE,
+                         params_path=str(npz), dtype=torch.float32,
+                         device=dev)
+    frames = game_piece_frames(4)
+    out, paths = {}, {}
+    for b in (1, 4):
+        engine.infer(engine.preprocess_device(frames[:b]))      # warm-up
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        x = engine.preprocess_device(frames[:b])
+        res = engine.infer(x)
+        rows = [engine.detections(res, (W, H), r) for r in range(b)]
+        torch.cuda.synchronize()
+        counts = _build.counts()
+        check_kernel_set(f"game piece B={b}", counts, set())
+        paths[f"game piece B={b}"] = counts
+        check(all(v.device == dev for v in res.values())
+              and tuple(res["boxes"].shape) == (b, 100, 4),
+              f"game piece B={b}: outputs {[(k, v.device, v.shape) for k, v in res.items()]}")
+        # the card's preprocess and forward against the CPU's f32 ones
+        xc = cpu.preprocess_device(frames[:b])
+        pre_err = float((x.cpu() - xc).abs().max())
+        check(pre_err <= 1e-5, f"preprocess_device: {pre_err} from the CPU")
+        raw = engine.forward(x)
+        raw_cpu = cpu.forward(xc)
+        check(tuple(raw.shape) == (b, 5, 8400) and raw.dtype == torch.float32
+              and bool(torch.isfinite(raw).all()),
+              f"raw {tuple(raw.shape)} {raw.dtype}")
+        errs = {}
+        for name, got, tol in (("bf16", raw, GP_BF16_TOL),
+                               ("f32", None, GP_F32_TOL)):
+            if got is None:
+                # cuDNN rounds f32 convolution inputs to TF32 unless told
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=False):
+                    got = f32.forward(x)
+            got = got.cpu()
+            box = float((got[:, :4] - raw_cpu[:, :4]).abs().max())
+            score = float((got[:, 4:] - raw_cpu[:, 4:]).abs().max())
+            check(box <= tol[0] and score <= tol[1],
+                  f"game piece B={b} {name}: boxes {box} px, scores "
+                  f"{score} from the CPU's f32 forward (limits {tol})")
+            errs[name] = (box, score)
+        # NMS on the card on the CPU's raw output: equal slot for slot
+        want = nms.parse_and_nms(raw_cpu)
+        got = nms.parse_and_nms(raw_cpu.to(dev))
+        for k in ("valid", "classes", "scores", "boxes"):
+            check(torch.equal(got[k].cpu(), want[k]),
+                  f"game piece B={b}: card NMS {k} differs from the CPU's")
+        n_valid = [int(v) for v in want["valid"].sum(1)]
+        print(f"  B={b}: raw (B, 5, 8400) vs the CPU's f32 forward: card "
+              f"bf16 boxes {errs['bf16'][0]:.4f} px, scores "
+              f"{errs['bf16'][1]:.2e} (limits {GP_BF16_TOL}); card f32 "
+              f"(TF32 off) {errs['f32'][0]:.2e} px, {errs['f32'][1]:.2e} "
+              f"(limits {GP_F32_TOL}); preprocess {pre_err:.2e}; NMS on "
+              f"the CPU's raw equal on the card ({n_valid} kept); "
+              f"detections per row {[len(r) for r in rows]}")
+        out[f"B={b}"] = dict(bf16_box_err_px=errs["bf16"][0],
+                             bf16_score_err=errs["bf16"][1],
+                             f32_box_err_px=errs["f32"][0],
+                             f32_score_err=errs["f32"][1])
+
+    # weights through the JAX package's .npz format and back
+    again = ModelInference(num_classes=1, scale="n", img_size=GP_SIZE,
+                           params_path=str(npz), device=dev)
+    x = engine.preprocess_device(frames)
+    a, b_ = engine.infer(x), again.infer(x)
+    check(all(torch.equal(a[k], b_[k]) for k in a)
+          and torch.equal(engine.forward(x), again.forward(x)),
+          "save_params / load_params changed the outputs")
+    print("  save_params -> load_params: outputs identical")
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        print("  GamePieceNode.process_frame not run: no cv2 here (its "
+              "host preprocess needs cv2, as the JAX node's does)")
+    else:
+        from ros_vision_tpu_torch.runtime.game_piece_node import \
+            GamePieceNode
+        published = []
+        node = GamePieceNode(engine=engine,
+                             detection_publisher=published.append)
+        try:
+            dets = node.process_frame(frames[0])
+        finally:
+            node.stop()
+        check(node.frames_processed == 1 and published
+              and published[0].detections == dets,
+              "GamePieceNode.process_frame published nothing")
+        print(f"  GamePieceNode.process_frame ran: {len(dets)} detections")
+
+    for b in (1, 4):
+        x = engine.preprocess_device(frames[:b])
+        raw = engine.forward(x)
+        times = {"infer": [], "nms": []}
+        for _ in range(3):
+            engine.infer(x)
+        for _ in range(REPS):
+            for name, fn in (("infer", lambda: engine.infer(x)),
+                             ("nms", lambda: nms.parse_and_nms(raw))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        busy, dev_ms, launches, top = device_busy_share(
+            lambda: engine.infer(x))
+        _, nms_dev_ms, nms_launches, _ = device_busy_share(
+            lambda: nms.parse_and_nms(raw))
+        out[f"B={b}"].update(infer_ms_per_frame=ms["infer"] / b,
+                             infer_ms_per_call=ms["infer"],
+                             nms_ms_per_call=ms["nms"],
+                             nms_share=ms["nms"] / ms["infer"],
+                             device_busy_share=busy,
+                             device_ms_per_call=dev_ms,
+                             device_launches_per_call=launches,
+                             nms_device_ms_per_call=nms_dev_ms,
+                             nms_device_launches_per_call=nms_launches)
+        busy_text = "not measured (the profiler saw no device time)" \
+            if busy is None else (f"{busy:.1%} of a profiled window "
+                                  f"({dev_ms:.3f} ms device time and "
+                                  f"{launches:.0f} device launches a call; "
+                                  f"the NMS alone {nms_dev_ms:.3f} ms and "
+                                  f"{nms_launches:.0f} launches)")
+        print(f"  B={b}: infer (forward + NMS) {ms['infer'] / b:.3f} "
+              f"ms/frame, {ms['infer']:.3f} ms/call; NMS alone "
+              f"{ms['nms']:.3f} ms/call ({ms['nms'] / ms['infer']:.1%}); "
+              f"medians of {REPS}, host clock incl. sync; device busy "
+              f"{busy_text}")
+        for key, op_ms, count in top:
+            print(f"    {op_ms:.4f} ms, {count:.0f} launches a call: {key}")
+    return out, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1365,13 +1700,20 @@ def main() -> int:
     paths.update(ccl_paths_phase(planes["t4"], planes["t2"]))
     print("[system]")
     paths["system"], system = system_phase(dev)
+    print(f"[rectify {W}x{H} B=4]")
+    rectified, rect_paths = rectify_phase(dev, bench4, bench[0][1])
+    paths.update(rect_paths)
+    print(f"[game piece YOLOv11n {GP_SIZE} bf16]")
+    game_piece, gp_paths = game_piece_phase(dev)
+    paths.update(gp_paths)
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths.values())
     print(json.dumps({"detector": {str(b): v for b, v in det.items()},
                       "detector_1080": {str(b): v
                                         for b, v in det_1080.items()},
                       "use_pallas_sort_b4_ms_per_call": sorted_ms,
-                      "system": system}))
+                      "system": system, "rectify": rectified,
+                      "game_piece": game_piece}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

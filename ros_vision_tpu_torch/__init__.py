@@ -23,4 +23,9 @@ package has a hand-written CUDA C++ counterpart for Hopper
 A kernel wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; there is no other switch and no
 fallback. Nothing in this package imports jax.
+
+Off the AprilTag path, in plain PyTorch (the JAX modules reach no Pallas
+kernel there): the game-piece detector (models/yolo.py, models/infer.py,
+ops/nms.py, runtime/game_piece_node.py, tools/inference_benchmark.py) and
+the rectify/debayer preprocessing (ops/rectify.py).
 """
