@@ -93,10 +93,38 @@ Phases, each of which raises (and so exits nonzero) on failure:
      load_params give identical outputs; GamePieceNode.process_frame where
      cv2 imports; ms/frame of infer (forward + NMS) and of the NMS alone at
      B=1 and B=4, medians of 20, and the device-busy share and top device
-     operations from torch.profiler.
+     operations from torch.profiler;
+  8. train (models/train.py): YOLOv11n at 640x640, one class, f32, B=8,
+     from the seeded weights, on synthetic game-piece batches. One
+     make_train_step step on the card (TF32 off) against the same step on
+     the CPU: loss, box_loss, cls_loss and mean_iou within 1e-4 relative,
+     each parameter's gradient within 1e-3 of its max-abs; train() for 30
+     steps on one repeated batch at learning_rate 2e-3: the last loss below
+     0.7x the first and mean_iou up (tests/test_train.py's criteria);
+     BatchNorm running statistics bit-identical after training; the bf16
+     infer after training equal to a fresh engine's on the save_params of
+     the trained weights and different from before; none of the port's
+     kernels launched; ms a step (median of 20, the TF32 state printed),
+     peak device memory and the profiler's busy share and top operations;
+  9. extrinsic calibration (calib/extrinsic.py): four 1280x800 cameras
+     (fx = fy = 900) at the robot's corners (ring_cameras), tags of
+     0.1651 m 1-4 m out, each rendered whole in exactly the two cameras of
+     one adjacent pair; build_frameset_from_images through
+     TorchDetector(estimate_pose=True) on the card (the 1280x800 kernel
+     set, K1 1, K2 6, K3 1, K4 1 device launches a call; every detection
+     one of the rendered tags in a camera of its pair, >= 8 tags a pair
+     seen by both); solve_extrinsics on the card, 2,500 iterations at
+     3e-2 with front_left frozen: each free camera within 1 degree and
+     2 cm of the truth, the anchor exactly its guess; the CPU's solve of
+     the same frameset within the same limits, its difference from the
+     card's printed beside the CPU's own move when the inputs move by
+     1e-7; tests/test_calib_launch.py's two-camera rig solved on the card
+     and the CPU for 1,000 iterations, within 0.01 degree and 1e-4 m of
+     each other, and for 2,500 on the card within the truth's limits;
+     ms per detected image and per solver iteration.
 K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
-Every path of phases 3-7 runs with the launch counts set to 0 just before
+Every path of phases 3-9 runs with the launch counts set to 0 just before
 it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
 K6, K7, K10 and K11 report equal their fixed number per call times the
@@ -1481,7 +1509,10 @@ def device_busy_share(fn, calls: int = 10) -> tuple:
         wall_us = (time.perf_counter() - t0) * 1e6
     ops = []
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # a user annotation (the optimizer's step) spans kernels listed
+        # on their own too, and the gaps between them
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and \
+                not getattr(e, "is_user_annotation", False):
             us = getattr(e, "device_time_total", None)
             ops.append((e.cuda_time_total if us is None else us, e.count,
                         e.key))
@@ -1648,6 +1679,515 @@ def game_piece_phase(dev):
     return out, paths
 
 
+TRAIN_B = 8
+TRAIN_STEPS = 30
+# one step on the card (TF32 off) against the same step on the CPU: the
+# metrics' relative error, and each gradient tensor's max-abs error over
+# that tensor's max-abs
+TRAIN_METRIC_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+# the extrinsic ring: fx = fy = 900 at 1280x800, tags of 0.1651 m
+RING_FX = 900.0
+TAG_SIZE = 0.1651
+RING_ITERATIONS = 2500
+RING_LR = 3e-2
+# a free camera within 1 degree and 2 cm of the truth (the limits of
+# tests/test_calib_launch.py), on the card and on the CPU. The card's solve
+# within 0.01 degree and 1e-4 m of the CPU's after RIG_AGREE_ITERATIONS on
+# that test's two-camera rig, where the trajectory is stable (inputs moved
+# by 1e-7 move it <= 4e-7 m on the CPU). Not after 2,500: Adam at a
+# constant rate ends in steps that spike once the loss has converged, and
+# its last iterate then moves by up to millimetres when the inputs move by
+# 1e-7, on the ring's frameset from a few hundred iterations on (the CPU's
+# solve of a perturbed copy is printed beside the card's difference)
+RING_TOL = (1.0, 0.02)
+RING_CPU_TOL = (0.01, 1e-4)
+RIG_AGREE_ITERATIONS = 1000
+
+
+def train_batch(b: int, seed: int = 0):
+    """A synthetic (imgs, boxes, labels, mask) batch at GP_SIZE: the bench
+    scene in grey with an orange game piece of its own size and place in
+    each frame (game_piece_frames' scenes), resized from 1280x800 to
+    GP_SIZE x GP_SIZE as preprocess_device resizes, with its box in
+    cx,cy,w,h model pixels; one object a row, a padded second slot."""
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.default_rng(seed)
+    frames, boxes = [], np.zeros((b, 2, 4), np.float32)
+    sx, sy = GP_SIZE / W, GP_SIZE / H
+    for i in range(b):
+        img, _ = bench_scene(i)
+        bgr = np.repeat(img[..., None], 3, -1)
+        w, h = rng.integers(120, 320), rng.integers(100, 260)
+        x, y = rng.integers(0, W - w), rng.integers(0, H - h)
+        bgr[y:y + h, x:x + w] = (25, 100, 230)
+        frames.append(bgr[..., ::-1])
+        boxes[i, 0] = ((x + w / 2) * sx, (y + h / 2) * sy, w * sx, h * sy)
+    x = torch.from_numpy(np.stack(frames).astype(np.float32) / 255.0)
+    imgs = F.interpolate(x.permute(0, 3, 1, 2), size=(GP_SIZE, GP_SIZE),
+                         mode="bilinear", align_corners=False,
+                         antialias=True).permute(0, 2, 3, 1)
+    labels = np.zeros((b, 2), np.int32)
+    mask = np.zeros((b, 2), bool)
+    mask[:, 0] = True
+    return imgs.contiguous().numpy(), boxes, labels, mask
+
+
+def train_phase(dev):
+    """models/train.py: YOLOv11n at 640, one class, f32 training at B=8
+    from seeded weights on the card."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.models import train as tr
+    from ros_vision_tpu_torch.models.infer import ModelInference
+
+    def engine(device, dtype=torch.float32, path=None):
+        return ModelInference(num_classes=1, scale="n", img_size=GP_SIZE,
+                              class_names=["ball"], params_path=path,
+                              dtype=dtype, device=device)
+
+    gp = engine(dev, torch.bfloat16)
+    npz = str(seeded_game_piece_weights(gp))
+    batch = train_batch(TRAIN_B)
+    out = {}
+
+    # one step on the card, TF32 off, against the same step on the CPU
+    def one_step(device):
+        eng = engine(device, path=npz)
+        step = tr.make_train_step(
+            eng.model, torch.optim.SGD(eng.model.parameters(), lr=0.0),
+            GP_SIZE, 1)
+        metrics = step(*(torch.from_numpy(a).to(device) for a in batch))
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: p.grad.cpu() for k, p in eng.model.named_parameters()})
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card_m, card_g = one_step(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    cpu_m, cpu_g = one_step(torch.device("cpu"))
+    m_err = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m}
+    g_err = max((float((card_g[k] - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30), k)
+                for k, g in cpu_g.items())
+    check(all(e <= TRAIN_METRIC_TOL for e in m_err.values()),
+          f"train step: card metrics {card_m} vs CPU {cpu_m} (limit "
+          f"{TRAIN_METRIC_TOL} relative)")
+    check(g_err[0] <= TRAIN_GRAD_TOL,
+          f"train step: gradient of {g_err[1]} {g_err[0]:.3e} of its "
+          f"max-abs from the CPU's (limit {TRAIN_GRAD_TOL})")
+    print(f"  one step B={TRAIN_B}, TF32 off, card vs CPU: metrics "
+          f"{ {k: f'{v:.2e}' for k, v in m_err.items()} } relative (limit "
+          f"{TRAIN_METRIC_TOL}); worst gradient {g_err[0]:.3e} of its "
+          f"max-abs ({g_err[1]}; limit {TRAIN_GRAD_TOL}); loss "
+          f"{card_m['loss']:.5f}")
+    out["step_vs_cpu"] = dict(metric_rel_err=m_err,
+                              worst_grad_err=g_err[0],
+                              worst_grad_param=g_err[1], card=card_m)
+
+    # overfit one repeated batch through train(), on the bf16 engine
+    x = torch.from_numpy(batch[0]).to(dev)
+    raw0 = gp.forward(x).clone()
+    stats0 = {k: v.clone() for k, v in gp.model.state_dict().items()
+              if "running_" in k}
+
+    def repeated():
+        while True:
+            yield batch
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    hist = tr.train(gp, repeated(), steps=TRAIN_STEPS,
+                    cfg=tr.TrainConfig(learning_rate=2e-3),
+                    log_every=TRAIN_STEPS - 1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _build.counts()
+    check_kernel_set("train", counts, set())
+    first, last = hist[0], hist[-1]
+    check(last["loss"] < 0.7 * first["loss"]
+          and last["mean_iou"] > first["mean_iou"],
+          f"train: {TRAIN_STEPS} steps on one batch went {first} -> {last}")
+    stats = {k: v for k, v in gp.model.state_dict().items()
+             if "running_" in k}
+    check(all(torch.equal(stats[k], v) for k, v in stats0.items()),
+          "train: BatchNorm running statistics changed")
+    trained = ROOT / "build" / "chip_smoke" / "gamepiece_trained.npz"
+    gp.save_params(str(trained))
+    fresh = engine(dev, torch.bfloat16, str(trained))
+    raw = gp.forward(x)
+    check(torch.equal(raw, fresh.forward(x)),
+          "train: the trained engine's bf16 forward differs from a fresh "
+          "engine on its saved weights")
+    check(not torch.equal(raw, raw0), "train: bf16 forward unchanged by "
+          "training")
+    a, b = gp.infer(x), fresh.infer(x)
+    check(all(torch.equal(a[k], b[k]) for k in a),
+          "train: infer differs from a fresh engine on the saved weights")
+    print(f"  train() {TRAIN_STEPS} steps on one B={TRAIN_B} batch: loss "
+          f"{first['loss']:.4f} -> {last['loss']:.4f}, mean IoU "
+          f"{first['mean_iou']:.4f} -> {last['mean_iou']:.4f} "
+          f"({train_s:.2f} s); BatchNorm statistics bit-identical; bf16 "
+          f"infer == a fresh engine on save_params; none of the port's "
+          f"kernels launched")
+
+    # ms per step and peak memory on a fresh f32 engine
+    eng = engine(dev, path=npz)
+    step = tr.make_train_step(eng.model, tr.make_optimizer(eng.model),
+                              GP_SIZE, 1)
+    args = [torch.from_numpy(a).to(dev) for a in batch]
+    for _ in range(3):
+        step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, dev_ms, launches, top = device_busy_share(lambda: step(*args))
+    tf32_now = dict(cudnn=torch.backends.cudnn.allow_tf32,
+                    matmul=torch.backends.cuda.matmul.allow_tf32)
+    busy_text = "not measured (the profiler saw no device time)" \
+        if busy is None else (f"{busy:.1%} of a profiled window "
+                              f"({dev_ms:.3f} ms device time and "
+                              f"{launches:.0f} device launches a step)")
+    print(f"  step B={TRAIN_B} f32: {ms:.3f} ms (median of {REPS}, host "
+          f"clock incl. sync; TF32 {tf32_now}), {ms / TRAIN_B:.3f} ms an "
+          f"image; peak memory {peak / 2**20:.1f} MiB; device busy "
+          f"{busy_text}")
+    for key, op_ms, count in top:
+        print(f"    {op_ms:.4f} ms, {count:.0f} launches a step: {key}")
+    out.update(first=first, last=last, ms_per_step=ms, tf32=tf32_now,
+               peak_memory_bytes=peak, device_busy_share=busy,
+               device_ms_per_step=dev_ms,
+               device_launches_per_step=launches)
+    return out, {"train": counts}
+
+
+def ring_cameras() -> dict:
+    """Four 1280x800 cameras (fx = fy = 900) at the corners of a 0.7 x
+    0.6 m robot: {cam_id: ((roll, pitch, yaw) deg, (x, y, z) m)}. A camera
+    sees 70.8 degrees across, so two cameras whose axes part by 90 degrees
+    share no view: the front pair turns out by 22.5 degrees and the back
+    pair by 67.5 degrees, each side's pair 45 degrees apart. The three
+    adjacent pairs front, left and right overlap; the back pair does not."""
+    return {"front_left": ((1.0, -2.0, 22.5), (0.35, 0.30, 0.45)),
+            "front_right": ((-1.5, 1.0, -22.5), (0.35, -0.30, 0.45)),
+            "back_left": ((0.5, -1.0, 67.5), (-0.35, 0.30, 0.50)),
+            "back_right": ((1.0, 2.0, -67.5), (-0.35, -0.30, 0.50))}
+
+
+RING_PAIRS = (("front_left", "front_right"), ("front_left", "back_left"),
+              ("front_right", "back_right"))
+
+
+def ring_scene(per_pair: int = 12, seed: int = 0):
+    """Tags 1-4 m out, each seen whole by exactly the two cameras of one
+    adjacent pair and by no other camera, `per_pair` for each pair, spread
+    over frames so that no two tags overlap in a camera's image. Returns
+    ({frame: {cam_id: gray (800, 1280) u8}}, {frame: {tag_id: pair}}, the
+    exact frameset {frame: {tag_id: [{cam_id, translation}]}} of the tags'
+    true camera-frame centers)."""
+    from ros_vision_tpu_torch.apriltag.render import (project_tag_corners,
+                                                      render_scene)
+    from ros_vision_tpu_torch.utils import rotation_utils as ru
+    rng = np.random.default_rng(seed)
+    mounts = ring_cameras()
+    cams = {c: (ru.compose_rotations_xyz(*a) @ ru.camera_to_robot(),
+                np.asarray(t)) for c, (a, t) in mounts.items()}
+    up = np.array([0.0, 0.0, 1.0])
+
+    def center(cam, p):
+        r, t = cams[cam]
+        return r.T @ (p - t)
+
+    def project(cam, rot, p):
+        pc = center(cam, p)
+        if pc[2] < 0.3:
+            return None
+        return project_tag_corners(cams[cam][0].T @ rot, pc, TAG_SIZE,
+                                   RING_FX, RING_FX, W / 2, H / 2)
+
+    def inside(q, margin):
+        return q is not None and bool(
+            (q[:, 0] > margin).all() and (q[:, 0] < W - margin).all()
+            and (q[:, 1] > margin).all() and (q[:, 1] < H - margin).all())
+
+    def near(q, margin=100):
+        """Any part of the quad's bounding box within `margin` px of the
+        image."""
+        return q is not None and bool(
+            q[:, 0].max() > -margin and q[:, 0].min() < W + margin
+            and q[:, 1].max() > -margin and q[:, 1].min() < H + margin)
+
+    frames = []          # per frame: {tag_id: (pair, {cam: corners})}
+    next_id = 1
+    for pair in RING_PAIRS:
+        mid = (cams[pair[0]][1] + cams[pair[1]][1]) / 2
+        yaw = np.deg2rad(np.mean([mounts[c][0][2] for c in pair]))
+        placed = 0
+        while placed < per_pair:
+            d = rng.uniform(1.0, 4.0)
+            a = yaw + rng.uniform(-0.12, 0.12)
+            p = mid + np.array([d * np.cos(a), d * np.sin(a),
+                                rng.uniform(-0.2, 0.5)])
+            z = (p - mid) / np.linalg.norm(p - mid)
+            y = -(up - (up @ z) * z)
+            y /= np.linalg.norm(y)
+            x = np.cross(y, z)
+            roll = np.deg2rad(rng.uniform(-30, 30))
+            x, y = (np.cos(roll) * x + np.sin(roll) * y,
+                    -np.sin(roll) * x + np.cos(roll) * y)
+            rot = np.stack([x, y, z], 1)
+            quads = {c: project(c, rot, p) for c in cams}
+            if not all(inside(quads[c], 24) for c in pair) or any(
+                    near(quads[c]) for c in cams if c not in pair):
+                continue
+            for frame in frames:     # the first frame with room for it
+                if all(not _boxes_meet(quads[c], q[c])
+                       for _, q, _ in frame.values() for c in pair
+                       if c in q):
+                    break
+            else:
+                frame = {}
+                frames.append(frame)
+            frame[next_id] = (pair, {c: quads[c] for c in pair},
+                              {c: center(c, p) for c in pair})
+            next_id += 1
+            placed += 1
+    images, truth, exact = {}, {}, {}
+    for f, frame in enumerate(frames):
+        images[f] = {}
+        for cam in cams:
+            tags = [(i, q[cam]) for i, (_, q, _) in frame.items() if cam in q]
+            images[f][cam] = render_scene(
+                [i for i, _ in tags], [q for _, q in tags], W, H,
+                noise_sigma=1.0, seed=100 * f + len(images[f]))[0]
+        truth[f] = {i: pair for i, (pair, _, _) in frame.items()}
+        exact[f] = {i: [{"cam_id": c, "translation": pc[c]}
+                        for c in cams if c in pc]
+                    for i, (_, _, pc) in frame.items()}
+    return images, truth, exact
+
+
+def _boxes_meet(a: np.ndarray, b: np.ndarray, pad: float = 0.3) -> bool:
+    """Whether two corner quads' bounding boxes, each grown by `pad` of its
+    size (the tag's quiet zone and a margin), overlap."""
+    def box(q):
+        lo, hi = q.min(0), q.max(0)
+        g = (hi - lo) * pad
+        return lo - g, hi + g
+    (alo, ahi), (blo, bhi) = box(a), box(b)
+    return bool((alo < bhi).all() and (blo < ahi).all())
+
+
+def rotation_err_deg(a, b) -> float:
+    """The angle between two rotation matrices, from the Frobenius norm of
+    their difference (2 arcsin(|A - B| / 2 sqrt 2)): no floor from f32
+    matrices that are not quite orthonormal, as arccos of the trace has."""
+    d = np.linalg.norm(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(np.degrees(2 * np.arcsin(min(d / (2 * np.sqrt(2)), 1.0))))
+
+
+def pose_diff(a: dict, b: dict) -> tuple:
+    """(degrees, metres) between two system_config extrinsics entries."""
+    return (rotation_err_deg(a["rotation"], b["rotation"]),
+            float(np.abs(np.subtract(a["offset"], b["offset"])).max()))
+
+
+def perturbed(frameset: dict, eps: float, seed: int = 5) -> dict:
+    """The frameset with each translation times (1 + eps * N(0, 1))."""
+    rng = np.random.default_rng(seed)
+    return {f: {i: [dict(r, translation=np.asarray(r["translation"])
+                         * (1 + eps * rng.standard_normal(3)))
+                    for r in recs] for i, recs in frame.items()}
+            for f, frame in frameset.items()}
+
+
+def two_camera_rig(n_tags: int = 40, seed: int = 0) -> dict:
+    """tests/test_calib_launch.py's frameset: camA at (0, 0.2, 0.5) and camB
+    turned (2, -3, 25) degrees at (0.1, -0.3, 0.4), both seeing 40 tags at
+    random robot-frame positions, their exact camera-frame centers."""
+    from ros_vision_tpu_torch.utils import rotation_utils as ru
+    rng = np.random.default_rng(seed)
+    cams = {"camA": (ru.camera_to_robot(), np.array([0.0, 0.2, 0.5])),
+            "camB": (ru.compose_rotations_xyz(2.0, -3.0, 25.0)
+                     @ ru.camera_to_robot(), np.array([0.1, -0.3, 0.4]))}
+    frameset = {}
+    for i in range(n_tags):
+        p = rng.uniform([1.0, -2.0, 0.3], [4.0, 2.0, 1.5])
+        frameset[i] = {100 + i: [{"cam_id": c, "translation": r.T @ (p - t)}
+                                 for c, (r, t) in cams.items()]}
+    return frameset
+
+
+def extrinsic_phase(dev):
+    """calib/extrinsic.py: four ring cameras' tag poses from TorchDetector
+    on the card (the 1280x800 kernel set), the extrinsics solved on the
+    card from perturbed guesses with front_left frozen as the anchor."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+    from ros_vision_tpu_torch.calib import extrinsic as ex
+    from ros_vision_tpu_torch.utils import rotation_utils as ru
+
+    images, truth, exact = ring_scene()
+    det = TorchDetector(device=dev, width=W, height=H, fx=RING_FX,
+                        fy=RING_FX, cx=W / 2, cy=H / 2, tag_size=TAG_SIZE,
+                        estimate_pose=True)
+    det.detect(images[0]["front_left"])                   # warm-up
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    frameset = ex.build_frameset_from_images(images, lambda cam: det,
+                                             TAG_SIZE)
+    detect_s = time.perf_counter() - t0
+    n_images = sum(len(c) for c in images.values())
+    # every detection a rendered tag seen by a camera of its pair; the
+    # tags both cameras of a pair detected, at least 8 a pair
+    pairs = dict.fromkeys(RING_PAIRS, 0)
+    views = missed = 0
+    for f, tags in truth.items():
+        for i, recs in frameset[f].items():
+            cams = sorted(r["cam_id"] for r in recs)
+            check(i in tags and set(cams) <= set(tags[i])
+                  and len(set(cams)) == len(cams),
+                  f"extrinsic frame {f}: tag {i} detected by {cams}, "
+                  f"rendered for {tags.get(i)}")
+        for i, pair in tags.items():
+            got = len(frameset[f].get(i, ()))
+            views += 2
+            missed += 2 - got
+            pairs[pair] += got == 2
+    check(min(pairs.values()) >= 8, f"extrinsic: tags detected by both "
+          f"cameras of each pair {pairs}")
+    pose_err = max(float(np.abs(r["translation"] - e["translation"]).max())
+                   for f in exact for i, recs in frameset[f].items()
+                   for r in recs for e in exact[f][i]
+                   if e["cam_id"] == r["cam_id"])
+
+    guesses = {}
+    rng = np.random.default_rng(1)
+    for cam, (angles, t) in ring_cameras().items():
+        if cam == "front_left":
+            guesses[cam] = ex.CameraGuess(angles, t, adjustable=False)
+        else:
+            guesses[cam] = ex.CameraGuess(
+                tuple(np.add(angles, rng.uniform(-5, 5, 3))),
+                tuple(np.add(t, rng.uniform(-0.1, 0.1, 3))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = ex.solve_extrinsics(frameset, guesses, RING_ITERATIONS,
+                                 RING_LR, device=dev)
+    solve_s = time.perf_counter() - t0
+    counts = _build.counts()
+    check_kernel_set("extrinsic", counts, PATH_800)
+    check_device_launches("extrinsic", counts)
+    check(counts["adaptive_threshold"] == n_images,
+          f"extrinsic: {counts['adaptive_threshold']} detector calls for "
+          f"{n_images} images")
+    cpu = ex.solve_extrinsics(frameset, guesses, RING_ITERATIONS, RING_LR,
+                              device="cpu")
+    jitter = ex.solve_extrinsics(perturbed(frameset, 1e-7), guesses,
+                                 RING_ITERATIONS, RING_LR, device="cpu")
+    # the guesses' rotations as the solve computes them, batched on the card
+    with torch.no_grad():
+        guessed = (ex._rot_xyz(torch.tensor(
+            [guesses[c].rotations_deg for c in sorted(guesses)],
+            dtype=torch.float32, device=dev))
+            @ torch.as_tensor(ex._CAM2ROBOT, device=dev)).cpu().numpy()
+
+    errs = {}
+    for cam, (angles, t) in ring_cameras().items():
+        want_r = ru.compose_rotations_xyz(*angles) @ ru.camera_to_robot()
+        got = result[cam]
+        rot_err, off_err = pose_diff(got, {"rotation": want_r, "offset": t})
+        vs_cpu = pose_diff(got, cpu[cam])
+        cpu_jitter = pose_diff(cpu[cam], jitter[cam])
+        if guesses[cam].adjustable:
+            cpu_err = pose_diff(cpu[cam], {"rotation": want_r, "offset": t})
+            check(rot_err < RING_TOL[0] and off_err < RING_TOL[1]
+                  and cpu_err[0] < RING_TOL[0] and cpu_err[1] < RING_TOL[1],
+                  f"extrinsic {cam}: card {rot_err:.4f} deg, {off_err:.4f} "
+                  f"m, CPU {cpu_err} from the truth (limits {RING_TOL})")
+        else:
+            row = sorted(guesses).index(cam)
+            check(got["rotation"] == guessed[row].tolist()
+                  and got["offset"] == np.float32(
+                      guesses[cam].translation).tolist(),
+                  f"extrinsic {cam}: the frozen anchor moved")
+        errs[cam] = dict(rot_err_deg=rot_err, offset_err_m=off_err,
+                         vs_cpu_deg=vs_cpu[0], vs_cpu_m=vs_cpu[1],
+                         cpu_jitter_deg=cpu_jitter[0],
+                         cpu_jitter_m=cpu_jitter[1])
+        print(f"  {cam}{' (anchor, frozen)' if cam == 'front_left' else ''}"
+              f": {rot_err:.4f} deg, {off_err * 1e3:.2f} mm from the truth;"
+              f" card vs CPU {vs_cpu[0]:.2e} deg, {vs_cpu[1]:.2e} m; the "
+              f"CPU's solve of the inputs x (1 + 1e-7 noise) moved "
+              f"{cpu_jitter[0]:.2e} deg, {cpu_jitter[1]:.2e} m")
+    # the two-camera rig of tests/test_calib_launch.py: card vs CPU
+    rig = two_camera_rig()
+    rig_guesses = {"camA": ex.CameraGuess((0.0, 0.0, 0.0), (0.0, 0.2, 0.5),
+                                          adjustable=False),
+                   "camB": ex.CameraGuess((0.0, 0.0, 15.0), (0.0, 0.0, 0.3))}
+    rig_card, rig_cpu = (ex.solve_extrinsics(rig, rig_guesses,
+                                             RIG_AGREE_ITERATIONS, RING_LR,
+                                             device=d) for d in (dev, "cpu"))
+    rig_diff = pose_diff(rig_card["camB"], rig_cpu["camB"])
+    rig_card = ex.solve_extrinsics(rig, rig_guesses, RING_ITERATIONS,
+                                   RING_LR, device=dev)
+    rig_err = pose_diff(rig_card["camB"], {
+        "rotation": ru.compose_rotations_xyz(2.0, -3.0, 25.0)
+        @ ru.camera_to_robot(), "offset": (0.1, -0.3, 0.4)})
+    check(rig_diff[0] <= RING_CPU_TOL[0] and rig_diff[1] <= RING_CPU_TOL[1]
+          and rig_err[0] < RING_TOL[0] and rig_err[1] < RING_TOL[1],
+          f"extrinsic two-camera rig: card vs CPU {rig_diff} (limits "
+          f"{RING_CPU_TOL}), vs the truth {rig_err} (limits {RING_TOL})")
+    print(f"  two-camera rig of tests/test_calib_launch.py: camB "
+          f"{rig_err[0]:.2e} deg, {rig_err[1]:.2e} m from the truth after "
+          f"{RING_ITERATIONS} iterations on the card; card vs CPU after "
+          f"{RIG_AGREE_ITERATIONS} {rig_diff[0]:.2e} deg, {rig_diff[1]:.2e}"
+          f" m (limits {RING_CPU_TOL})")
+    ms_image = detect_s * 1e3 / n_images
+    ms_iter = solve_s * 1e3 / RING_ITERATIONS
+    busy, dev_ms, launches, _ = device_busy_share(
+        lambda: ex.solve_extrinsics(frameset, guesses, 50, RING_LR,
+                                    device=dev), calls=1)
+    busy_text = "not measured (the profiler saw no device time)" \
+        if busy is None else (f"{busy:.1%} of a profiled 50-iteration "
+                              f"solve, {launches / 50:.0f} device launches "
+                              f"and {dev_ms / 50 * 1e3:.1f} us of device "
+                              f"time an iteration")
+    print(f"  {n_images} images ({len(images)} frames x 4 cameras); "
+          f"{missed} of {views} rendered views not detected; tags detected "
+          f"by both cameras of a pair {list(pairs.values())}; pose_t at "
+          f"most {pose_err * 1e3:.2f} mm from the rendered centers; "
+          f"{ms_image:.3f} ms per detected "
+          f"image; solve {RING_ITERATIONS} iterations {solve_s:.3f} s, "
+          f"{ms_iter:.4f} ms an iteration (host clock incl. sync), device "
+          f"busy {busy_text}; launches {counts}")
+    return (dict(cameras=errs, images=n_images, views_missed=missed,
+                 views=views, pair_tags=list(pairs.values()),
+                 pose_t_max_err_m=pose_err, rig_vs_cpu=rig_diff,
+                 ms_per_image=ms_image,
+                 ms_per_iteration=ms_iter, solve_s=solve_s,
+                 solve_device_busy_share=busy,
+                 solve_device_launches_per_iteration=None if busy is None
+                 else launches / 50),
+            {"extrinsic": counts})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1706,6 +2246,12 @@ def main() -> int:
     print(f"[game piece YOLOv11n {GP_SIZE} bf16]")
     game_piece, gp_paths = game_piece_phase(dev)
     paths.update(gp_paths)
+    print(f"[train YOLOv11n {GP_SIZE} f32 B={TRAIN_B}]")
+    trained, train_paths = train_phase(dev)
+    paths.update(train_paths)
+    print(f"[extrinsic calibration: 4 cameras {W}x{H}]")
+    extrinsic, ex_paths = extrinsic_phase(dev)
+    paths.update(ex_paths)
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths.values())
     print(json.dumps({"detector": {str(b): v for b, v in det.items()},
@@ -1713,7 +2259,8 @@ def main() -> int:
                                         for b, v in det_1080.items()},
                       "use_pallas_sort_b4_ms_per_call": sorted_ms,
                       "system": system, "rectify": rectified,
-                      "game_piece": game_piece}))
+                      "game_piece": game_piece, "train": trained,
+                      "extrinsic": extrinsic}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
