@@ -121,11 +121,34 @@ Phases, each of which raises (and so exits nonzero) on failure:
      1e-7; tests/test_calib_launch.py's two-camera rig solved on the card
      and the CPU for 1,000 iterations, within 0.01 degree and 1e-4 m of
      each other, and for 2,500 on the card within the truth's limits;
-     ms per detected image and per solver iteration.
+     ms per detected image and per solver iteration;
+ 10. tf32: TorchDetector writes none of the TF32 settings
+     (matmul.allow_tf32, cudnn.allow_tf32, the float32 matmul
+     precision), and its B=4 packed output at 1280x800 and 1920x1080 is
+     bit-identical with TF32 allowed everywhere and with TF32 off (phase 8
+     times the train step both ways, in turns);
+ 11. tracing (utils/tracing.py): stage_taps(check=True) on the B=4 bench
+     batches through exactly the path's kernels, the taps' ids and
+     hamming equal to detect_raw's and their corners within 0.1 px;
+     StageTimer's ms per stage (CUDA events) at B=1 and B=4, both sizes;
+ 12. mesh (parallel/mesh.py): detect_raw and detect_raw_packed of a
+     detector sharded by TorchDetector.use_mesh over [cuda:0, cuda:0]
+     on the 1280x800 B=4 batch; the ok mask in
+     every slot and every output in the accepted slots bit-identical to
+     the unsharded B=4 call and to per-row B=1 calls; ms a call of both;
+ 13. soak (tools/soak.py) against the f64 oracle: parity on 100 seeds,
+     hard on 50 with --audit-misses, gate on 4; no mismatch, no miss the
+     oracle does not share, the flood path's kernels (320x160, 640x400);
+ 14. bench: python -m ros_vision_tpu_torch.bench in a subprocess with
+     BENCH_ENV's cuts; its last line parsed, tags_ok, every key of
+     bench.py's record filled (the golden photo's marked skipped when the
+     photo is absent); its headline, sweep, streaming and stage lines.
+Each of phases 10-14 prints its seconds beside the card's name and power
+limit.
 K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
-Every path of phases 3-9 runs with the launch counts set to 0 just before
-it and read just after; the launches of the kernels line sum those runs.
+Every path of phases 3-13 runs with the launch counts set to 0 just
+before it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
 K6, K7, K10 and K11 report equal their fixed number per call times the
 calls (K1 1, K2 6, K3 1, K4 1, K6 4, K7 1, K10 1, K11 1), and K8's equal
@@ -181,6 +204,8 @@ PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
             "value_histogram"}
 PATH_1080 = {"adaptive_threshold", "propagate_fixpoint", "label_histogram",
              "boundary_compact", "value_histogram"}
+# the card's name and power limit (nvidia-smi), printed beside the times
+CARD = ""
 
 
 def check(cond, msg: str) -> None:
@@ -1705,6 +1730,36 @@ RING_CPU_TOL = (0.01, 1e-4)
 RIG_AGREE_ITERATIONS = 1000
 
 
+def tf32_flags() -> tuple:
+    """(matmul.allow_tf32, cudnn.allow_tf32, float32 matmul precision)."""
+    import torch
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+class tf32_state:
+    """Set the three TF32 settings of tf32_flags() for a block; restore
+    them after."""
+
+    def __init__(self, flags: tuple):
+        self.flags = flags
+
+    def __enter__(self):
+        self.saved = tf32_flags()
+        self._set(self.flags)
+
+    def __exit__(self, *exc):
+        self._set(self.saved)
+
+    @staticmethod
+    def _set(flags):
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.backends.cudnn.allow_tf32 = flags[1]
+        torch.set_float32_matmul_precision(flags[2])
+
+
 def train_batch(b: int, seed: int = 0):
     """A synthetic (imgs, boxes, labels, mask) batch at GP_SIZE: the bench
     scene in grey with an orange game piece of its own size and place in
@@ -1762,15 +1817,8 @@ def train_phase(dev):
         return ({k: float(v) for k, v in metrics.items()},
                 {k: p.grad.cpu() for k, p in eng.model.named_parameters()})
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_state((False, False, "highest")):
         card_m, card_g = one_step(dev)
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
     cpu_m, cpu_g = one_step(torch.device("cpu"))
     m_err = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m}
     g_err = max((float((card_g[k] - g).abs().max())
@@ -1838,39 +1886,53 @@ def train_phase(dev):
           f"infer == a fresh engine on save_params; none of the port's "
           f"kernels launched")
 
-    # ms per step and peak memory on a fresh f32 engine
+    # ms per step and peak memory on a fresh f32 engine, under the
+    # process defaults (no module of the port writes the TF32 flags) and,
+    # in turns, with TF32 off everywhere
     eng = engine(dev, path=npz)
     step = tr.make_train_step(eng.model, tr.make_optimizer(eng.model),
                               GP_SIZE, 1)
     args = [torch.from_numpy(a).to(dev) for a in batch]
-    for _ in range(3):
-        step(*args)
+    tf32_now = tf32_flags()
+    modes = {"defaults": tf32_now, "tf32_off": (False, False, "highest")}
+    for mode in modes.values():
+        with tf32_state(mode):
+            for _ in range(3):
+                step(*args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    times = []
+    times = {m: [] for m in modes}
     for _ in range(REPS):
-        t0 = time.perf_counter()
-        step(*args)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
+        for m, mode in modes.items():
+            with tf32_state(mode):
+                t0 = time.perf_counter()
+                step(*args)
+                torch.cuda.synchronize()
+                times[m].append((time.perf_counter() - t0) * 1e3)
+    ms = {m: statistics.median(v) for m, v in times.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     busy, dev_ms, launches, top = device_busy_share(lambda: step(*args))
-    tf32_now = dict(cudnn=torch.backends.cudnn.allow_tf32,
-                    matmul=torch.backends.cuda.matmul.allow_tf32)
+    check(tf32_flags() == tf32_now, "train: TF32 flags changed")
+    with tf32_state(modes["tf32_off"]):
+        _, off_dev_ms, _, _ = device_busy_share(lambda: step(*args))
     busy_text = "not measured (the profiler saw no device time)" \
         if busy is None else (f"{busy:.1%} of a profiled window "
                               f"({dev_ms:.3f} ms device time and "
-                              f"{launches:.0f} device launches a step)")
-    print(f"  step B={TRAIN_B} f32: {ms:.3f} ms (median of {REPS}, host "
-          f"clock incl. sync; TF32 {tf32_now}), {ms / TRAIN_B:.3f} ms an "
-          f"image; peak memory {peak / 2**20:.1f} MiB; device busy "
-          f"{busy_text}")
+                              f"{launches:.0f} device launches a step; "
+                              f"TF32 off: {off_dev_ms:.3f} ms)")
+    print(f"  step B={TRAIN_B} f32 (medians of {REPS}, in turns, host "
+          f"clock incl. sync): {ms['defaults']:.3f} ms under the process "
+          f"defaults (matmul.allow_tf32, cudnn.allow_tf32, matmul "
+          f"precision = {tf32_now}), {ms['tf32_off']:.3f} ms with TF32 "
+          f"off; {ms['defaults'] / TRAIN_B:.3f} ms an image; peak memory "
+          f"{peak / 2**20:.1f} MiB; device busy {busy_text}")
     for key, op_ms, count in top:
         print(f"    {op_ms:.4f} ms, {count:.0f} launches a step: {key}")
-    out.update(first=first, last=last, ms_per_step=ms, tf32=tf32_now,
+    out.update(first=first, last=last, ms_per_step=ms["defaults"],
+               ms_per_step_tf32_off=ms["tf32_off"], tf32=tf32_now,
                peak_memory_bytes=peak, device_busy_share=busy,
                device_ms_per_step=dev_ms,
+               device_ms_per_step_tf32_off=off_dev_ms,
                device_launches_per_step=launches)
     return out, {"train": counts}
 
@@ -2188,6 +2250,296 @@ def extrinsic_phase(dev):
             {"extrinsic": counts})
 
 
+def same_bits(got, want) -> bool:
+    """Same shapes, dtypes and bits (float NaNs in unused slots too)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype.is_floating_point:
+        got, want = got.contiguous().view(torch.int32), \
+            want.contiguous().view(torch.int32)
+    return torch.equal(got, want)
+
+
+def check_same_bits(what: str, got, want) -> None:
+    check(same_bits(got, want),
+          f"{what}: not bit-identical ({tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype})")
+
+
+def unpack_torch(packed) -> dict:
+    """unpack_outputs of a packed tensor, as CPU tensors."""
+    import torch
+    from ros_vision_tpu_torch.apriltag.detector import unpack_outputs
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in unpack_outputs(packed.cpu().numpy()).items()}
+
+
+def detector_kw(width: int, height: int) -> dict:
+    return dict(width=width, height=height, fx=900.0, fy=900.0,
+                cx=width / 2, cy=height / 2, estimate_pose=True)
+
+
+def tf32_phase(dev, batches: dict) -> tuple:
+    """TorchDetector writes none of the TF32 settings, and its packed
+    output at B=4 is bit-identical with TF32 allowed everywhere
+    (matmul.allow_tf32, cudnn.allow_tf32, float32 matmul precision
+    "high") and with TF32 off."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+
+    before = tf32_flags()
+    paths = {}
+    for (width, height), (frames, must) in batches.items():
+        det = TorchDetector(device=dev, **detector_kw(width, height))
+        check(tf32_flags() == before,
+              f"TorchDetector {width}x{height} changed the TF32 settings "
+              f"{before} to {tf32_flags()}")
+        g = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+        det.detect_raw_packed(g)                          # warm-up
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        out = {}
+        for name, flags in (("on", (True, True, "high")),
+                            ("off", (False, False, "highest"))):
+            with tf32_state(flags):
+                out[name] = det.detect_raw_packed(g)
+                torch.cuda.synchronize()
+        counts = _build.counts()
+        check_kernel_set(f"tf32 {width}x{height}", counts, must)
+        check_device_launches(f"tf32 {width}x{height}", counts)
+        check(tf32_flags() == before, "the TF32 settings were not restored")
+        check_same_bits(f"{width}x{height} B=4 packed output, TF32 on vs "
+                        "off", out["on"], out["off"])
+        for i, dets in enumerate(det.unpack(out["on"])):
+            ids = [d.tag_id for d in dets]
+            check(ids == BENCH_IDS, f"tf32 {width}x{height} row {i}: {ids}")
+        paths[f"tf32 {width}x{height}"] = counts
+        print(f"  {width}x{height} B=4: packed output bit-identical with "
+              f"TF32 on (True, True, 'high') and off; TorchDetector left "
+              f"the settings at {before}")
+    return {"settings": list(before), "bit_identical": True}, paths
+
+
+def tap_detections(taps: dict) -> list:
+    """Per row {tag_id: (hamming, corners (4, 2))} of the accepted quads
+    of stage_taps, the corners projected from the decode's homography as
+    the detector projects them."""
+    tcs = np.array([[-1, 1], [1, 1], [1, -1], [-1, -1]], np.float64)
+    rows = []
+    for b in range(taps["ok"].shape[0]):
+        row = {}
+        for q in np.nonzero(taps["ok"][b])[0]:
+            Hq = taps["H"][b, q].astype(np.float64)
+            p = np.c_[tcs, np.ones(4)] @ Hq.T
+            row[int(taps["tag_id"][b, q])] = (int(taps["hamming"][b, q]),
+                                             p[:, :2] / p[:, 2:])
+        rows.append(row)
+    return rows
+
+
+def tracing_phase(dev, batches: dict) -> tuple:
+    """utils/tracing on the card: stage_taps(check=True) through the
+    path's kernels, held against detect_raw on the same frames (ids and
+    hamming equal, corners within 0.1 px), and StageTimer's ms per stage
+    at B=1 and B=4."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+    from ros_vision_tpu_torch.utils.tracing import StageTimer, stage_taps
+
+    out, paths = {}, {}
+    for (width, height), (frames, must) in batches.items():
+        det = TorchDetector(device=dev, **detector_kw(width, height))
+        stage_taps(det, frames, check=True)               # warm-up
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        taps = stage_taps(det, frames, check=True)
+        torch.cuda.synchronize()
+        counts = _build.counts()
+        what = f"stage taps {width}x{height}"
+        check_kernel_set(what, counts, must)
+        check_device_launches(what, counts)
+        paths[what] = counts
+        worst = 0.0
+        for i, (tap, dets) in enumerate(zip(tap_detections(taps),
+                                            det.detect(frames))):
+            check(sorted(tap) == [d.tag_id for d in dets] == BENCH_IDS,
+                  f"{what} row {i}: taps {sorted(tap)}, detect "
+                  f"{[d.tag_id for d in dets]}")
+            for d in dets:
+                ham, corners = tap[d.tag_id]
+                check(ham == d.hamming, f"{what} row {i} id {d.tag_id}: "
+                      f"hamming {ham} vs {d.hamming}")
+                worst = max(worst, float(np.abs(corners - d.corners).max()))
+        check(worst < 0.1, f"{what}: corners {worst:.4f} px from detect")
+        timer = StageTimer(det)
+        ms = {}
+        for b in (1, 4):
+            ms[str(b)] = timer.measure(frames[:b], reps=5)
+        print(f"  {width}x{height} B=4: taps checked, ids and hamming == "
+              f"detect_raw, corners within {worst:.5f} px; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for b, times in ms.items():
+            print(f"  StageTimer {width}x{height} B={b} (ms a call, CUDA "
+                  f"events over 5 queued calls, {CARD}): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+                  + f"; total {sum(times.values()):.3f}")
+        out[f"{width}x{height}"] = dict(corner_err_px=worst, stage_ms=ms)
+    return out, paths
+
+
+def mesh_phase(dev, bench4) -> tuple:
+    """parallel/mesh.py: a two-way mesh [dev, dev], installed by
+    TorchDetector.use_mesh as VisionSystem installs it, over the bench B=4
+    batch: detect_raw and detect_raw_packed bit-identical to the unsharded
+    B=4 call and to per-row B=1 calls."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import (TorchDetector,
+                                                        pack_outputs)
+    from ros_vision_tpu_torch.parallel import mesh as pm
+
+    det = TorchDetector(device=dev, **detector_kw(W, H))
+    g = torch.from_numpy(np.ascontiguousarray(bench4)).to(dev)
+    intr = torch.as_tensor(det.default_intrinsics(4), device=dev)
+    mdet = TorchDetector(device=dev, **detector_kw(W, H))
+    mdet.use_mesh(pm.make_camera_mesh(devices=[dev, dev]))
+    mdet.detect_raw(g, intr)                              # warm-up
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    got = mdet.detect_raw(g, intr)
+    got_packed = mdet.detect_raw_packed(g, intr)
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    check_kernel_set("mesh", counts, PATH_800)
+    check_device_launches("mesh", counts)
+    whole = det._detect_device(g, intr)
+    rows = [det._detect_device(g[i:i + 1], intr[i:i + 1]) for i in range(4)]
+    per_row = {k: torch.cat([r[k] for r in rows]) for k in whole}
+    check(set(got) == set(whole), f"mesh keys {sorted(got)}")
+    # Each call picks its tail tier from its batch's worst row, and a
+    # rejected slot holds what that tier left there (decode junk or
+    # padding), as in the JAX package; so the detections are compared: the
+    # ok mask in every slot, every output in the accepted ones.
+    full = {}
+    for ref_name, ref in (("unsharded B=4", whole), ("per-row B=1", per_row),
+                          ("unsharded B=4 packed",
+                           unpack_torch(pack_outputs(whole))),
+                          ("per-row B=1 packed",
+                           unpack_torch(pack_outputs(per_row)))):
+        mine = unpack_torch(got_packed) if "packed" in ref_name else got
+        ok = ref["ok"]
+        check_same_bits(f"mesh ok vs {ref_name}", mine["ok"], ok)
+        for k in ref:
+            check_same_bits(f"mesh {k} vs {ref_name} (accepted slots)",
+                            mine[k][ok.to(mine[k].device)],
+                            ref[k][ok.to(ref[k].device)])
+        full[ref_name] = all(same_bits(mine[k], ref[k]) for k in ref)
+    for i, dets in enumerate(det.unpack(got_packed)):
+        check([d.tag_id for d in dets] == BENCH_IDS, f"mesh row {i}")
+    times = {"mesh": [], "unsharded": []}
+    for _ in range(5):
+        for name, fn in (("mesh", lambda: mdet.detect_raw_packed(g, intr)),
+                         ("unsharded", lambda: det.detect_raw_packed(g))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  [{dev}, {dev}] over 1280x800 B=4: dict and packed "
+          f"detections bit-identical to the unsharded B=4 call and to "
+          f"per-row B=1 calls (ok mask in every slot, every output in the "
+          f"accepted ones); whole tensors identical too: {full}")
+    print(f"  ms a call (medians of 5, in turns, host clock incl. "
+          f"sync, {CARD}): mesh {ms['mesh']:.3f}, unsharded "
+          f"{ms['unsharded']:.3f}")
+    return dict(ms_per_call=ms, whole_tensors_identical=full), \
+        {"mesh": counts}
+
+
+SOAK_SEEDS = {"parity": 100, "hard": 50, "gate": 4}
+
+
+def soak_phase(dev) -> tuple:
+    """tools/soak.py's three profiles on the card against the f64 oracle:
+    parity on 100 seeds, hard on 50 with --audit-misses, gate on 4; no
+    mismatch, no miss the oracle does not share."""
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.tools import soak
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    res = {"parity": soak.run_parity(range(SOAK_SEEDS["parity"]), dev),
+           "hard": soak.run_hard(range(SOAK_SEEDS["hard"]), dev,
+                                 audit_misses=True),
+           "gate": soak.run_gate(range(SOAK_SEEDS["gate"]), dev)}
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    # 320x160 and 640x400 frames take the flood front end
+    check_kernel_set("soak", counts, PATH_1080)
+    check_device_launches("soak", counts)
+    for name, r in res.items():
+        check(r["ok"], f"soak {name}: {r}")
+    p, h, gt = res["parity"], res["hard"], res["gate"]
+    print(f"  parity: {p['seeds']} seeds, {len(p['failures'])} failures, "
+          f"{p['junk_extras']} junk-margin extras, {p['tie_divergences']} "
+          f"peak-tie divergences, {p['seconds']:.1f} s")
+    print(f"  hard (--audit-misses): {h['seeds']} seeds, {h['scored']} in "
+          f"frame, {len(h['failures'])} failures, {h['missed']} "
+          f"non-detections, all {h['oracle_missed']} missed by the oracle "
+          f"too, {h['seconds']:.1f} s")
+    print(f"  gate: {gt['seeds']} seeds, {gt['cases']} decode pairs, "
+          f"losses {gt['losses']}, {gt['seconds']:.1f} s")
+    summary = {k: {kk: vv for kk, vv in r.items() if kk != "failures"}
+               for k, r in res.items()}
+    return summary, {"soak": counts}
+
+
+BENCH_ENV = {"BENCH_ITERS": "5", "BENCH_STREAM_S": "4",
+             "BENCH_STREAM_TIMEOUT_S": "180", "BENCH_TOTAL_TIMEOUT_S": "400"}
+
+
+def bench_phase() -> dict:
+    """python -m ros_vision_tpu_torch.bench in a subprocess with
+    BENCH_ENV's cuts: its last line parsed, tags_ok true, every key of
+    bench.py's record present and filled (the golden photo's null, and
+    marked skipped, when the photo is absent)."""
+    import os
+    from ros_vision_tpu_torch import bench
+
+    r = subprocess.run([sys.executable, "-m", "ros_vision_tpu_torch.bench"],
+                       cwd=ROOT, env={**os.environ, **BENCH_ENV},
+                       capture_output=True, text=True, timeout=450)
+    check(r.returncode == 0, f"bench exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    missing = [k for k in bench.KEYS if k not in rec]
+    check(not missing, f"bench record lacks {missing}")
+    golden = ("golden_1080p_ms_per_frame", "golden_1080p_tags_ok")
+    empty = [k for k in bench.KEYS if rec[k] is None
+             and not (k in golden and rec["golden_1080p_skipped"])]
+    check(not empty, f"bench record has no value for {empty}")
+    check(rec["tags_ok"] is True, "bench: tags_ok is not true")
+    check(rec["backend"] == "torch-cuda" and "bench_error" not in rec,
+          f"bench: {rec.get('backend')}, {rec.get('bench_error')}")
+    print(f"  {rec['value']} fps at B={rec['best_batch']} "
+          f"({rec['best_batch_call_ms']} ms a call), vs_baseline "
+          f"{rec['vs_baseline']}, p50_latency_ms {rec['p50_latency_ms']}, "
+          f"b1_sync_roundtrip_ms {rec['b1_sync_roundtrip_ms']}, tags_ok "
+          f"{rec['tags_ok']}; card {rec['device']}")
+    print(f"  sweep: {rec['sweep']}")
+    print(f"  streaming: {rec['streaming_fps_per_camera']} fps a camera, "
+          f"e2e p50 {rec['e2e_p50_ms']} ms, p95 {rec['e2e_p95_ms']} ms; "
+          f"phases {rec['streaming_phases']}")
+    print(f"  stage_ms: {rec['stage_ms']}")
+    print(f"  golden 1080p: {rec['golden_1080p_skipped'] or 'run'}; "
+          f"BENCH_* = {BENCH_ENV}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2204,6 +2556,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi)
+    global CARD
+    CARD = smi
 
     t0 = time.monotonic()
     _build.LIBRARY.get()
@@ -2252,6 +2606,19 @@ def main() -> int:
     print(f"[extrinsic calibration: 4 cameras {W}x{H}]")
     extrinsic, ex_paths = extrinsic_phase(dev)
     paths.update(ex_paths)
+    sizes = {(W, H): (bench4, PATH_800), (W2, H2): (bench4_1080, PATH_1080)}
+    added = {}
+    for name, run in (
+            ("tf32", lambda: tf32_phase(dev, sizes)),
+            ("tracing", lambda: tracing_phase(dev, sizes)),
+            ("mesh", lambda: mesh_phase(dev, bench4)),
+            ("soak", lambda: soak_phase(dev)),
+            ("bench", lambda: (bench_phase(), {}))):
+        print(f"[{name}]")
+        t0 = time.monotonic()
+        added[name], new_paths = run()
+        paths.update(new_paths)
+        print(f"  [{name}] {time.monotonic() - t0:.1f} s on {CARD}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths.values())
     print(json.dumps({"detector": {str(b): v for b, v in det.items()},
@@ -2260,7 +2627,7 @@ def main() -> int:
                       "use_pallas_sort_b4_ms_per_call": sorted_ms,
                       "system": system, "rectify": rectified,
                       "game_piece": game_piece, "train": trained,
-                      "extrinsic": extrinsic}))
+                      "extrinsic": extrinsic, **added}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

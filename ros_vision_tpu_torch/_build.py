@@ -161,12 +161,21 @@ class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
     else, so a run can show that the main path went through the kernel.
     `kernels` sums the device kernel launches that C launchers which
-    report them (K1-K4, K6-K11) made for those calls."""
+    report them (K1-K4, K6-K11) made for those calls. Wrappers may run on
+    several threads at once (parallel/mesh.py), so add() takes a lock."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self.kernels = 0
+        self._lock = threading.Lock()
+
+    def add(self, kernels: int = 0) -> None:
+        """One more launch of the wrapper, which made `kernels` device
+        kernel launches."""
+        with self._lock:
+            self.count += 1
+            self.kernels += kernels
 
 
 COUNTERS: dict[str, LaunchCounter] = {}

@@ -166,10 +166,6 @@ class TorchDetector:
             config = dataclasses.replace(config, max_points=mp)
         self.config = config
         self.device = torch.device(device)
-        # full-f32 matmul and convolution (the decode code match and
-        # sharpening); cuDNN convolutions default to TF32 otherwise
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.family: TagFamily = get_family(config.family)
         self._code_matrix = torch.as_tensor(dec.make_code_matrix(self.family),
                                             device=self.device)
@@ -189,6 +185,21 @@ class TorchDetector:
         self._qcfg_narrow = dataclasses.replace(
             self._qcfg, max_points=self._active_points)
         self.host_syncs = HostSyncs()
+        self.use_mesh(None)
+
+    def use_mesh(self, mesh: list | None) -> None:
+        """Serve detect_raw / detect_raw_packed sharded over `mesh` (a list
+        of devices, parallel/mesh.py: a detector and a worker thread per
+        device, gathered on mesh[0]); None serves them unsharded here."""
+        self.mesh = mesh
+        if mesh is None:
+            self._fn = self._detect_device
+            self._fn_packed = self._detect_packed
+            return
+        from ros_vision_tpu_torch.parallel.mesh import (shard_detector,
+                                                        shard_detector_packed)
+        self._fn = shard_detector(self, mesh)
+        self._fn_packed = shard_detector_packed(self, mesh)
 
     def default_intrinsics(self, batch: int) -> np.ndarray:
         """(B, 9) [fx, fy, cx, cy, k1, k2, p1, p2, k3] from the config."""
@@ -206,6 +217,10 @@ class TorchDetector:
         pts, counts = frontend(threshim, cfg.max_points,
                                self._qcfg.max_boundary_pixels)
         return self._cluster_and_tail(gray, decim, pts, counts, intr)
+
+    def _detect_packed(self, gray: torch.Tensor,
+                       intr: torch.Tensor) -> torch.Tensor:
+        return pack_outputs(self._detect_device(gray, intr))
 
     def _cluster_and_tail(self, gray, decim, pts, counts, intr):
         cfg = self.config
@@ -328,11 +343,11 @@ class TorchDetector:
     def detect_raw(self, gray_batch, intrinsics=None) -> dict:
         """Fixed-shape output dict on the device. intrinsics: (B, 9)
         per-camera rows; defaults from the config."""
-        return self._detect_device(*self._inputs(gray_batch, intrinsics))
+        return self._fn(*self._inputs(gray_batch, intrinsics))
 
     def detect_raw_packed(self, gray_batch, intrinsics=None) -> torch.Tensor:
         """The single packed (B, NQ, C) f32 tensor (pack_outputs layout)."""
-        return pack_outputs(self.detect_raw(gray_batch, intrinsics))
+        return self._fn_packed(*self._inputs(gray_batch, intrinsics))
 
     def detect_yuyv(self, yuyv_batch, intrinsics=None) -> list:
         """Detect on raw YUYV422 frames (B, H, 2*W) uint8."""

@@ -12,10 +12,12 @@ reference's launch layer (ros_vision_launch):
     optimizations are enabled, measurement mode + timing CSV, optional bag
     recording with {location}-templated topics, web viewer.
 
-All cameras feed ONE batched detector on one explicit device through the
-native frame ring, so "launch" builds threads + one VisionNode instead of
-the reference's process pair per camera. There is no device mesh: one
-card serves the whole camera batch.
+All cameras feed ONE batched detector through the native frame ring, so
+"launch" builds threads + one VisionNode instead of the reference's
+process pair per camera. With VisionSystem(enable_mesh=True), more than
+one device and more than one camera, the camera batch is sharded over the
+devices (parallel/mesh.py); otherwise one detector on one device serves
+the whole batch.
 """
 from __future__ import annotations
 
@@ -206,10 +208,18 @@ class VisionSystem:
                  camera_factory=None,
                  detector_overrides: dict | None = None,
                  pipe_zero_copy: bool | None = None,
-                 tag_sender=None):
-        """device: the torch device the detector runs on. tag_sender: an
-        optional {location: sender} dict (or one shared sender) used
-        instead of NT4 senders — the DI seam for recording publishes."""
+                 tag_sender=None,
+                 enable_mesh: bool = False):
+        """device: the torch device the detector runs on (the first of the
+        mesh's). tag_sender: an optional {location: sender} dict (or one
+        shared sender) used instead of NT4 senders — the DI seam for
+        recording publishes. enable_mesh: shard the camera batch over
+        the devices of the detector's type (parallel/mesh.mesh_devices)
+        when there are several, by the JAX package's rule. Off by
+        default, unlike the JAX package: the detector call is host-bound,
+        and the mesh's worker threads share one interpreter lock, so on
+        four H100s a sharded B=4 call measured 14x the unsharded call's
+        time (PERF.md, scripts/mb_torch_mesh.py)."""
         from ros_vision_tpu_torch.apriltag.detector import (DetectorConfig,
                                                             TorchDetector)
         from ros_vision_tpu_torch.runtime.camera import (CameraPublisher,
@@ -275,7 +285,22 @@ class VisionSystem:
                       estimate_pose=True)
         det_kw.update(detector_overrides or {})
         self.detector = TorchDetector(DetectorConfig(**det_kw), device=device)
+
+        # multi-device: shard the camera batch when more than one device
+        # and more than one camera are present (the replacement for the
+        # reference's one-process-pair-per-camera scale-out,
+        # launch_vision.py:231-308). The axis is the largest divisor of
+        # the camera count that fits the device count.
         self.mesh = None
+        if enable_mesh:
+            from ros_vision_tpu_torch.parallel import mesh as pm
+            devices = pm.mesh_devices(self.detector.device)
+            axis = pm.camera_axis(len(devices), len(idents))
+            if axis > 1:
+                self.mesh = pm.make_camera_mesh(n_cameras=axis,
+                                                devices=devices)
+                self.detector.use_mesh(self.mesh)
+                log.info("camera batch sharded over %d devices", axis)
 
         intr_rows = self.detector.default_intrinsics(len(idents))
         for i, calib in enumerate(per_camera_calibs):

@@ -146,8 +146,7 @@ def _propagate_fixpoint_cuda(threshim: torch.Tensor,
     _build.launch("rvt_propagate_fixpoint", dev, threshim, values, labels,
                   rootmin, out, ctypes.addressof(made), b, h, w,
                   *ccl_plan(h, w).args())
-    fixpoint_launches.count += 1
-    fixpoint_launches.kernels += made.value
+    fixpoint_launches.add(made.value)
     return out
 
 
@@ -169,8 +168,7 @@ def _label_histogram_cuda(labels_flat: torch.Tensor) -> torch.Tensor:
     made = ctypes.c_int(0)
     _build.launch("rvt_label_histogram", dev, labels_flat, counts,
                   ctypes.addressof(made), b, n)
-    histogram_launches.count += 1
-    histogram_launches.kernels += made.value
+    histogram_launches.add(made.value)
     return counts
 
 
@@ -194,8 +192,7 @@ def _propagate_cuda(threshim: torch.Tensor, labels: torch.Tensor,
     made = ctypes.c_int(0)
     _build.launch("rvt_propagate", dev, threshim, labels, scratch, out,
                   ctypes.addressof(made), b, h, w, n_sweeps, *plan.args())
-    propagate_launches.count += 1
-    propagate_launches.kernels += made.value
+    propagate_launches.add(made.value)
     return out
 
 

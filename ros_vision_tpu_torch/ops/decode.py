@@ -7,9 +7,10 @@ length-adaptive subpixel edge refinement on a static sample superset
 32/64/128 sample-grid tier picked by the longest valid edge), the
 projective-basis homography, border gray models, bilinear bit sampling,
 3x3 decode sharpening and the code match as one matmul against the
-family's (4*n_codes, nbits) bit matrix. That matmul stays torch.matmul
-(plain XLA in the JAX package); TorchDetector switches TF32 off for it and
-for the sharpening convolution, so both run in full f32.
+family's (4*n_codes, nbits) bit matrix. No result depends on the
+process's TF32 flags: the sharpening is shifted f32 slices, the 3x3
+products are broadcast multiplies summed over the contracted axis (bmm3,
+bmv3), and the code match's matmul is exact in TF32 too.
 """
 from __future__ import annotations
 
@@ -27,6 +28,27 @@ DECODE_SHARPENING = 0.25
 MAX_HAMMING = 2
 REFINE_ALPHA_TIERS = (32, 64, 128)
 REFINE_NORMAL_STEPS = 25      # range +-(quad_decimate+1), step 0.25
+
+
+def bmm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., I, J) @ b (..., J, K) as broadcast f32 products summed over
+    J: elementwise work that the TF32 flags, unlike a matmul's, never
+    round."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
+def bmv3(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """a (..., I, J) @ v (..., J), as bmm3 does it."""
+    return (a * v[..., None, :]).sum(-1)
+
+
+def laplacian3(grid: torch.Tensor) -> torch.Tensor:
+    """The 3x3 kernel [[0,-1,0],[-1,4,-1],[0,-1,0]] over the last two axes
+    of `grid`, zero-padded (the decode sharpening), as f32 shifted slices
+    where a convolution would round to TF32 under cuDNN's default."""
+    pad = F.pad(grid, (1, 1, 1, 1))
+    return 4.0 * grid - pad[..., :-2, 1:-1] - pad[..., 2:, 1:-1] \
+        - pad[..., 1:-1, :-2] - pad[..., 1:-1, 2:]
 
 
 def adjust_pixel_centers(corners: torch.Tensor) -> torch.Tensor:
@@ -250,10 +272,9 @@ def quad_homographies(corners: torch.Tensor) -> torch.Tensor:
         torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1),
         torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1),
         torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)], -2)
-    cvec = torch.einsum("...ij,...j->...i", adj, p4)
+    cvec = bmv3(adj, p4)
     G = m * cvec[..., None, :]
-    H = torch.einsum("...ij,jk->...ik", G,
-                     torch.as_tensor(_SRC_BASIS_INV, device=corners.device))
+    H = bmm3(G, torch.as_tensor(_SRC_BASIS_INV, device=corners.device))
     h22 = H[..., 2:3, 2:3]
     h22 = torch.where(torch.abs(h22) < 1e-20,
                       torch.where(h22 < 0, -1e-20, 1e-20), h22)
@@ -401,11 +422,7 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
                            device=dev)
         grid[:, :, gi] = vals
         grid = grid.reshape(b, nq, total, total)
-    kern = torch.tensor([[0, -1, 0], [-1, 4, -1], [0, -1, 0]],
-                        dtype=torch.float32, device=dev)
-    sharp = F.conv2d(grid.reshape(b * nq, 1, total, total),
-                     kern[None, None], padding=1).reshape(b, nq, total, total)
-    grid = grid + DECODE_SHARPENING * sharp
+    grid = grid + DECODE_SHARPENING * laplacian3(grid)
     if grid_idx is None:
         g = family.grid_size
         vals = grid[:, :, 2:2 + g, 2:2 + g].reshape(b, nq, g * g)
@@ -419,7 +436,9 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
     black_cnt = (family.nbits - bits.sum(-1)) + 1.0
     margin = torch.minimum(white_score / white_cnt, black_score / black_cnt)
 
-    # code match: one matmul against the (4*n_codes, nbits) bit matrix
+    # code match: one matmul against the (4*n_codes, nbits) bit matrix;
+    # its inputs are 0/1 and each sum at most nbits, exact in TF32 and
+    # bf16 inputs with f32 sums, so no matmul precision setting changes it
     cm = code_matrix
     code_pop = cm.sum(-1)
     bits_pop = bits.sum(-1, keepdim=True)
@@ -440,7 +459,7 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
         torch.stack([c, -s, zero], -1),
         torch.stack([s, c, zero], -1),
         torch.stack([zero, zero, one], -1)], -2)
-    Hdet = torch.einsum("bqij,bqjk->bqik", H, R)
+    Hdet = bmm3(H, R)
     return {"ok": ok_all, "tag_id": tag_id,
             "hamming": best_h.to(torch.int32), "rotation": rotation,
             "margin": margin, "H": Hdet}

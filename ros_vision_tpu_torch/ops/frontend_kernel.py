@@ -67,8 +67,7 @@ def _label_components_cuda(threshim: torch.Tensor, min_blob: int,
                   rank_root, block_counts, ranks, sizes,
                   ctypes.addressof(made), b, h, w, min_blob, ccl.MAX_BLOBS,
                   *ccl_kernel.ccl_plan(h, w).args())
-    rank_launches.count += 1
-    rank_launches.kernels += made.value
+    rank_launches.add(made.value)
     return labels, sizes, ranks
 
 
@@ -165,8 +164,7 @@ def boundary_compact_cuda(threshim: torch.Tensor, ranks: torch.Tensor,
     _build.launch("rvt_boundary_compact", dev, threshim, ranks, key, pack2,
                   counts, ctypes.addressof(made), b, h, w, pc, k_cap,
                   *plan.args())
-    boundary_launches.count += 1
-    boundary_launches.kernels += made.value
+    boundary_launches.add(made.value)
     return key, pack2, counts
 
 

@@ -134,8 +134,7 @@ def value_histogram_cuda(values: torch.Tensor,
     _build.launch("rvt_value_histogram", dev, values, out,
                   ctypes.addressof(made), b, k, num_values, plan.cluster,
                   plan.threads, plan.bins_per_rank, plan.smem_bytes)
-    launches.count += 1
-    launches.kernels += made.value
+    launches.add(made.value)
     return out
 
 
@@ -171,8 +170,7 @@ def _table_take_cm_cuda(table: torch.Tensor,
     made = ctypes.c_int(0)
     _build.launch("rvt_table_take_cm", dev, table, idx, out,
                   ctypes.addressof(made), b, s, c, k)
-    take_launches.count += 1
-    take_launches.kernels += made.value
+    take_launches.add(made.value)
     return out
 
 
@@ -220,8 +218,7 @@ def _segment_min_max_cuda(seg: torch.Tensor, val: torch.Tensor,
                   ctypes.addressof(made), b, k, num_segments, plan.cluster,
                   plan.threads, plan.chunk, plan.slices, plan.segs_per_slice,
                   plan.segs_per_rank, plan.smem_bytes)
-    minmax_launches.count += 1
-    minmax_launches.kernels += made.value
+    minmax_launches.add(made.value)
     return mn, mx
 
 
@@ -255,7 +252,7 @@ def _rank_gather_cuda(labels: torch.Tensor,
     _build.check_tensor(rank_v, "rank_v", torch.int32, (b, n), dev)
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
     _build.launch("rvt_rank_gather", dev, labels, rank_v, out, b, n)
-    rank_gather_launches.count += 1
+    rank_gather_launches.add()
     return out
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ros_vision_tpu_torch.ops import mathf
-from ros_vision_tpu_torch.ops.decode import project
+from ros_vision_tpu_torch.ops.decode import bmm3, bmv3, project
 
 
 def _cross(a, b):
@@ -24,10 +24,11 @@ def _cross(a, b):
 def _cofactor(m):
     """Cofactor matrix of (..., 3, 3) m from cross products of its rows:
     adj(m) = C^T, det(m) = row0 . C[0]. Entry for entry the same products
-    and differences as the JAX package's closed-form adjugate, in a handful
-    of batched ops instead of ~40 scalar ones."""
-    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
-    return torch.stack([_cross(r1, r2), _cross(r2, r0), _cross(r0, r1)], -2)
+    and differences as the JAX package's closed-form adjugate: rows
+    r1 x r2, r2 x r0, r0 x r1 as one cross of the doubled rows' windows
+    (two launches in place of ~40 scalar ops)."""
+    mm = torch.cat([m, m], -2)
+    return _cross(mm[..., 1:4, :], mm[..., 2:5, :])
 
 
 def _safe_det(m, c):
@@ -63,14 +64,15 @@ def _orthogonal_iteration(v, obj, r0, t0, n_steps=30):
     eye = torch.eye(3, dtype=v.dtype, device=v.device)
     G = _inv3(eye - vv.mean(-3)) / v.shape[-2]
     p_res = obj - obj.mean(0)
+    vv_eye = vv - eye
     r, t = r0, t0
     for _ in range(n_steps):
-        rp = torch.einsum("...ij,nj->...ni", r, obj)
-        t = torch.einsum("...ij,...j->...i", G,
-                         torch.einsum("...nij,...nj->...i", vv - eye, rp))
-        q = torch.einsum("...nij,...nj->...ni", vv, rp + t[..., None, :])
+        rp = bmv3(r[..., None, :, :], obj)
+        # sum_n (vv_n - I) rp_n: one product, one sum over n and j
+        t = bmv3(G, (vv_eye * rp[..., None, :]).sum((-3, -1)))
+        q = bmv3(vv, rp + t[..., None, :])
         q_mean = q.mean(-2, keepdim=True)
-        m = torch.einsum("...ni,nj->...ij", q - q_mean, p_res)
+        m = bmm3((q - q_mean).transpose(-1, -2), p_res)
         # planar object: m's third column is zero; complete it with the
         # cross of the two data columns (the Procrustes-optimal null
         # direction) scaled to their geometric-mean norm
@@ -83,8 +85,8 @@ def _orthogonal_iteration(v, obj, r0, t0, n_steps=30):
         scale = torch.sqrt(n0 * n1) / c2n.clamp_min(1e-30)
         m = torch.stack([c0, c1, c2 * scale[..., None]], -1)
         r = polar_rotation(m)
-    rp = torch.einsum("...ij,nj->...ni", r, obj) + t[..., None, :]
-    res = rp - torch.einsum("...nij,...nj->...ni", vv, rp)
+    rp = bmv3(r[..., None, :, :], obj) + t[..., None, :]
+    res = rp - bmv3(vv, rp)
     return r, t, (res * res).sum((-1, -2))
 
 
@@ -120,7 +122,7 @@ def _axis_rotation(axis, ang):
     eye = torch.eye(3, dtype=axis.dtype, device=axis.device)
     s = mathf.sin(ang)[..., None, None]
     c = (1 - mathf.cos(ang))[..., None, None]
-    return eye + s * K + c * torch.einsum("...ij,...jk->...ik", K, K)
+    return eye + s * K + c * bmm3(K, K)
 
 
 def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
@@ -152,8 +154,7 @@ def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
     cos_a = (tn * normal).sum(-1)
     ang = -2.0 * mathf.atan2(sin_a, cos_a)
     axis = axis / sin_a.clamp_min(1e-9)[..., None]
-    r2_init = torch.einsum("...ij,...jk->...ik", _axis_rotation(axis, ang),
-                           r1)
+    r2_init = bmm3(_axis_rotation(axis, ang), r1)
     r2, t2, e2 = _orthogonal_iteration(v, obj, r2_init, t1, n_steps)
 
     use2 = (e2 < e1) & (sin_a > 1e-8)

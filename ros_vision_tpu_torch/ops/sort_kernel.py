@@ -141,8 +141,7 @@ def _sort_cuda(ops: list, num_keys: int) -> list:
     _build.launch("rvt_sort", dev, *three(ops), *three(work), *three(outs),
                   ctypes.addressof(made), b, k, plan.n, len(ops), num_keys,
                   plan.tile, plan.cluster, plan.threads, plan.smem_bytes)
-    launches.count += 1
-    launches.kernels += made.value
+    launches.add(made.value)
     return outs
 
 

@@ -96,8 +96,7 @@ def adaptive_threshold_cuda(gray: torch.Tensor,
     _build.launch("rvt_adaptive_threshold", dev, gray, decim, threshim,
                   ctypes.addressof(made), b, h, w, min_white_black_diff,
                   *plan.args())
-    launches.count += 1
-    launches.kernels += made.value
+    launches.add(made.value)
     return decim, threshim
 
 
