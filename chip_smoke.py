@@ -8,7 +8,7 @@ Phases, each of which raises (and so exits nonzero) on failure:
   1. build the kernels (one nvcc per csrc/*.cu, all started together,
      sm_90a) from the checkout;
   2. kernel checks: each of the eleven kernels against its plain PyTorch
-     version on the card, bit-exact, timed two ways beside its plain
+     version on the card, bit-exact (P1, the twelfth, within limits), timed two ways beside its plain
      version and, where one PyTorch call computes the same function, that
      call: call_ms, the median of 20 single calls each between its own
      CUDA events (what the eager path pays, the host's enqueue included),
@@ -56,15 +56,24 @@ Phases, each of which raises (and so exits nonzero) on failure:
      on the path's sorted ids and on random ids, also at K = 131075, B = 1,
      B = 12, S above segment_plan's cap and with every id outside [0, S);
      each K10 and K11 call checked to make its C launcher's one device
-     launch and repeated 10 times with identical outputs. Before the
-     kernel rows, the launch floor: device and call time of
+     launch and repeated 10 times with identical outputs; P1
+     (estimate_poses, not a Pallas kernel: the JAX function's
+     lax.fori_loops) on the homographies of one TorchDetector call on
+     each bench batch (B=4, the 8-slot tail tier), the same padded with
+     zero slots to the 128-slot fallback, and seeded_homographies' 4x128
+     batch (0.5-6 m, tilts to 70 degrees, the planar ambiguity, zero and
+     NaN slots), one device launch a call, 10 repeats bit-identical,
+     within pose_limits of its plain version on the card (not bit-exact:
+     f32 sums in other orders), timed also on one slot (its dependent
+     chain), its plain version's device time from the profiler. Before
+     the kernel rows, the launch floor: device and call time of
      torch.cuda._sleep(0), one launch of a kernel that does nothing;
   3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
      on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
      every row, corners within 0.1 px of the same detector's plain path on
-     the CPU and within 1 px of the rendered corners, and exactly the
-     front end's kernel set launched (K2 at 1280x800, K6 + K7 at
-     1920x1080); then TorchDetector(use_pallas_sort=True) at B=4 at both
+     the CPU and within 1 px of the rendered corners, pose_t within 1 mm
+     and pose_R within 1e-3 of it, and exactly the front end's kernel set
+     launched (K2 at 1280x800, K6 + K7 at 1920x1080, and P1); then TorchDetector(use_pallas_sort=True) at B=4 at both
      sizes, its packed output bit-identical to the default's, its kernel
      set the path's plus K9 with 4 K9 calls and 4 kernel launches per
      call (K4: one kernel launch per call on every detector path);
@@ -150,9 +159,10 @@ its tests), so their launches read 0.
 Every path of phases 3-13 runs with the launch counts set to 0 just
 before it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
-K6, K7, K10 and K11 report equal their fixed number per call times the
-calls (K1 1, K2 6, K3 1, K4 1, K6 4, K7 1, K10 1, K11 1), and K8's equal
-its plan's (one a round of PROPAGATE_HALO sweeps) summed over its calls.
+K6, K7, K10, K11 and P1 report equal their fixed number per call times
+the calls (K1 1, K2 6, K3 1, K4 1, K6 4, K7 1, K10 1, K11 1, P1 1), and
+K8's equal its plan's (one a round of PROPAGATE_HALO sweeps) summed over
+its calls. P1 launches on every path whose detector estimates poses.
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -201,9 +211,18 @@ GP_BF16_TOL = (1.0, 5e-3)
 GP_F32_TOL = (0.1, 1e-4)
 # kernels each path must launch; every other kernel must not launch there
 PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
-            "value_histogram"}
+            "value_histogram", "estimate_poses"}
 PATH_1080 = {"adaptive_threshold", "propagate_fixpoint", "label_histogram",
-             "boundary_compact", "value_histogram"}
+             "boundary_compact", "value_histogram", "estimate_poses"}
+# f32 operations of one slot of P1 (csrc/pose.cuh), a division or square
+# root counted as one: the polar rotation's start, 8 Newton steps and sign
+# check; an orthogonal-iteration step without its polar rotation; the
+# final error; and, once a slot, the corners and rays, the projectors and
+# G, the homography start (without its polar rotation) and the mirror
+POSE_POLAR_OPS = 29 + 8 * 59 + 14
+POSE_STEP_OPS = 330 + POSE_POLAR_OPS
+POSE_OPS = (72 + 163 + 54 + POSE_POLAR_OPS + 160
+            + 2 * (50 * POSE_STEP_OPS + 168))
 # the card's name and power limit (nvidia-smi), printed beside the times
 CARD = ""
 
@@ -294,6 +313,175 @@ def ragged_planes(b: int, h: int, w: int, seed: int = 11) -> np.ndarray:
     return out
 
 
+def _axis_angle(axis: np.ndarray, ang: np.ndarray) -> np.ndarray:
+    """(N, 3) unit axes, (N,) angles -> (N, 3, 3) f64 rotations."""
+    x, y, z = axis[:, 0], axis[:, 1], axis[:, 2]
+    zero = np.zeros_like(x)
+    k = np.stack([np.stack([zero, -z, y], -1), np.stack([z, zero, -x], -1),
+                  np.stack([-y, x, zero], -1)], -2)
+    s, c = np.sin(ang)[:, None, None], (1 - np.cos(ang))[:, None, None]
+    return np.eye(3) + s * k + c * (k @ k)
+
+
+def seeded_homographies(b: int, nq: int, seed: int = 0,
+                        tag_size: float = 0.1651, width: int = 1280,
+                        height: int = 800, noise_px: float = 0.5) -> dict:
+    """A numpy-seeded estimate_poses input for checks: (B, NQ, 3, 3) f32
+    detection homographies and per-row (B,) f32 intrinsics (fx 600-1400,
+    fy within 2% of fx, the centre within 40 px of the frame's).
+
+    Each slot is a tag 0.5-6 m out whose centre projects inside the frame,
+    its normal tilted 0-70 degrees from the sight line, its corners
+    projected with Gaussian noise of `noise_px` px (every fourth slot
+    within 0.5 degree of the sight line and without noise: the planar
+    ambiguity, sin_a ~ 0) and fitted by a homography scaled by a random
+    factor of either sign. The last slot of
+    each row is all zero and the one before it NaN (when NQ >= 3)."""
+    rng = np.random.default_rng(seed)
+    n = b * nq
+    fx = rng.uniform(600, 1400, b)
+    fy = fx * rng.uniform(0.98, 1.02, b)
+    cx = width / 2 + rng.uniform(-40, 40, b)
+    cy = height / 2 + rng.uniform(-40, 40, b)
+    row = np.repeat(np.arange(b), nq)
+    # the tag centre: a pixel inside the frame, 0.5-6 m along its ray
+    u = rng.uniform(0.1, 0.9, n) * width
+    v = rng.uniform(0.1, 0.9, n) * height
+    ray = np.stack([(u - cx[row]) / fx[row], (v - cy[row]) / fy[row],
+                    np.ones(n)], -1)
+    ray /= np.linalg.norm(ray, axis=-1, keepdims=True)
+    t = ray * rng.uniform(0.5, 6.0, n)[:, None]
+    # the tag's z axis (into the tag) along the ray, then tilted about an
+    # axis in the tag plane, then turned about its normal
+    zc = np.array([0.0, 0.0, 1.0])
+    to_ray = np.cross(zc, ray)
+    sin_r = np.linalg.norm(to_ray, axis=-1)
+    align = _axis_angle(to_ray / np.maximum(sin_r, 1e-12)[:, None],
+                        np.arctan2(sin_r, ray[:, 2]))
+    near = np.arange(n) % 4 == 0
+    tilt = np.deg2rad(np.where(near, rng.uniform(0, 0.5, n),
+                               rng.uniform(0, 70, n)))
+    phi = rng.uniform(0, 2 * np.pi, n)
+    tilt_axis = np.stack([np.cos(phi), np.sin(phi), np.zeros(n)], -1)
+    yaw_axis = np.tile(zc, (n, 1))
+    rot = align @ _axis_angle(tilt_axis, tilt) @ _axis_angle(
+        yaw_axis, rng.uniform(-np.pi, np.pi, n))
+    tcs = np.array([[-1, 1], [1, 1], [1, -1], [-1, -1]], np.float64)
+    obj = np.c_[tcs * tag_size / 2, np.zeros(4)]
+    cam = obj[None] @ rot.transpose(0, 2, 1) + t[:, None, :]
+    px = fx[row, None] * cam[..., 0] / cam[..., 2] + cx[row, None]
+    py = fy[row, None] * cam[..., 1] / cam[..., 2] + cy[row, None]
+    noise = np.where(near, 0.0, noise_px)[:, None]
+    px = px + noise * rng.standard_normal(px.shape)
+    py = py + noise * rng.standard_normal(py.shape)
+    # the homography tag (x, y) in [-1, 1]^2 -> pixels, h22 = 1 (DLT)
+    a = np.zeros((n, 8, 8))
+    rhs = np.zeros((n, 8))
+    for k, (x, y) in enumerate(tcs):
+        a[:, 2 * k] = np.stack([np.full(n, x), np.full(n, y), np.ones(n),
+                                np.zeros(n), np.zeros(n), np.zeros(n),
+                                -x * px[:, k], -y * px[:, k]], -1)
+        a[:, 2 * k + 1] = np.stack([np.zeros(n), np.zeros(n), np.zeros(n),
+                                    np.full(n, x), np.full(n, y), np.ones(n),
+                                    -x * py[:, k], -y * py[:, k]], -1)
+        rhs[:, 2 * k], rhs[:, 2 * k + 1] = px[:, k], py[:, k]
+    h = np.c_[np.linalg.solve(a, rhs[..., None])[..., 0], np.ones(n)]
+    scale = rng.uniform(0.5, 2.0, n) * rng.choice([-1.0, 1.0], n)
+    H = (h * scale[:, None]).reshape(b, nq, 3, 3).astype(np.float32)
+    if nq >= 3:
+        H[:, -1] = 0.0
+        H[:, -2] = np.nan
+    f32 = np.float32
+    return dict(H=H, fx=fx.astype(f32), fy=fy.astype(f32),
+                cx=cx.astype(f32), cy=cy.astype(f32))
+
+
+# f32's unit roundoff
+U32 = 2.0 ** -24
+# factors of pose_limits' rounding terms for R, t and err
+POSE_ROUNDING = (16.0, 8.0, 8.0)
+
+
+def pose_limits(t, err, tag_size: float) -> dict:
+    """Per-slot limits for two f32 estimate_poses results that round in
+    other orders, from the reference's t (N, 3) and err (N,), with
+    s = tag_size / 2 and kappa = (|t| / s)^2, the condition number of the
+    depth solve: R 1e-3 + 16 U32 kappa; t 1e-4 m + 8 U32 kappa |t|; err
+    1e-3 relative + 8 (2 U32 |t| sqrt(kappa)) sqrt(err), the residuals'
+    rounding carried into their squares. Each rounding term's factor is
+    about 2.5x the largest that two of the f32 versions (P1, the plain
+    version on the card and on the CPU, the JAX function) needed on
+    seeded batches out to 6 m (PERF.md §6); with the 0.1651 m tag at 1 m
+    the terms add 1.4e-4, 7e-5 m and 1.2e-5 sqrt(err)."""
+    d = np.linalg.norm(t, axis=-1)
+    s = tag_size / 2
+    kappa = (d / s) ** 2
+    c_r, c_t, c_e = POSE_ROUNDING
+    return dict(R=1e-3 + c_r * U32 * kappa, t=1e-4 + c_t * U32 * kappa * d,
+                err=1e-3 * np.abs(err) + c_e * 2 * U32 * d * np.sqrt(kappa)
+                * np.sqrt(np.abs(err)))
+
+
+def pose_agreement(what: str, got, candidates, tag_size: float) -> dict:
+    """Raise unless an estimate_poses result `got` (R, t, err) has its
+    non-finite values where the plain version's choice from `candidates`
+    (pose.pose_candidates_plain) has them and, on the finite slots,
+    lies within pose_limits of that choice; or, where the two candidates'
+    errors lie within the err limit of each other (a tie that rounding
+    decides), within pose_limits of the other candidate. -> the largest
+    differences (err relative), the largest share of a limit used and the
+    ties taken the other way."""
+    def host(x):
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+
+    first, second, sin_a = candidates
+    r1, t1, e1 = (host(x) for x in first)
+    r2, t2, e2 = (host(x) for x in second)
+    sin_a = host(sin_a)
+    use2 = (e2 < e1) & (sin_a > 1e-8)
+    want = (np.where(use2[..., None, None], r2, r1),
+            np.where(use2[..., None], t2, t1), np.where(use2, e2, e1))
+    other = (np.where(use2[..., None, None], r1, r2),
+             np.where(use2[..., None], t1, t2), np.where(use2, e1, e2))
+    got = tuple(host(x) for x in got)
+    check(all((np.isfinite(a) == np.isfinite(b)).all()
+              for a, b in zip(got, want)),
+          f"{what}: non-finite outputs in other places")
+    fin = (np.isfinite(want[0]).all((-1, -2)) & np.isfinite(want[1]).all(-1)
+           & np.isfinite(want[2]))
+
+    def used(ref):
+        """Per finite slot, the share of each limit that got uses."""
+        lim = pose_limits(ref[1][fin], ref[2][fin], tag_size)
+        diff = dict(R=np.abs(got[0] - ref[0]).max((-1, -2))[fin],
+                    t=np.abs(got[1] - ref[1]).max(-1)[fin],
+                    err=np.abs(got[2] - ref[2])[fin])
+        return diff, {k: diff[k] / np.maximum(lim[k], 1e-300) for k in lim}
+
+    diff, share = used(want)
+    near = np.maximum.reduce(list(share.values())) <= 1
+    tie = ((sin_a > 1e-8) & (np.abs(e1 - e2) <= pose_limits(
+        want[1], np.minimum(np.abs(e1), np.abs(e2)), tag_size)["err"]))[fin]
+    odiff, oshare = used(other)
+    flipped = ~near & tie & (np.maximum.reduce(list(oshare.values())) <= 1)
+    bad = ~near & ~flipped
+    for k in diff:
+        diff[k] = np.where(flipped, odiff[k], diff[k])
+        share[k] = np.where(flipped, oshare[k], share[k])
+    limit_used = {k: float(v.max(initial=0)) for k, v in share.items()}
+    check(not bad.any(), f"{what}: {int(bad.sum())} slots outside "
+          f"pose_limits of either candidate (share of the limit used "
+          f"{limit_used})")
+    rel = diff["err"] / np.maximum(np.abs(want[2][fin]), 1e-300)
+    return dict(slots=int(fin.size), finite=int(fin.sum()),
+                ties_other_way=int(flipped.sum()),
+                max_abs=float(max(d.max(initial=0) for d in diff.values())),
+                max_R=float(diff["R"].max(initial=0)),
+                max_t=float(diff["t"].max(initial=0)),
+                max_err_rel=float(rel.max(initial=0)),
+                limit_used=limit_used)
+
+
 def check_kernel_set(what: str, counts: dict, must: set) -> None:
     """Every kernel of `must` launched, every other kernel not."""
     check(all(counts[k] > 0 for k in must)
@@ -305,8 +493,8 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
 def check_device_launches(what: str, counts: dict,
                           propagate: int = 0) -> None:
     """The device launches that the C launchers of K1, K2, K3, K4, K6, K7,
-    K10 and K11 reported over a path's run: their fixed number per call
-    times the calls; and K8's: `propagate`, the sum of its calls'
+    K10, K11 and P1 reported over a path's run: their fixed number per
+    call times the calls; and K8's: `propagate`, the sum of its calls'
     plans."""
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
@@ -319,7 +507,7 @@ def check_device_launches(what: str, counts: dict,
                            ("propagate_fixpoint", ck.FIXPOINT_LAUNCHES),
                            ("label_histogram", ck.HISTOGRAM_LAUNCHES),
                            ("value_histogram", 1), ("table_take_cm", 1),
-                           ("segment_min_max", 1)):
+                           ("segment_min_max", 1), ("estimate_poses", 1)):
         check(kernels[name] == per_call * counts[name],
               f"{what}: {name} made {kernels[name]} device launches in "
               f"{counts[name]} calls, not {per_call} each")
@@ -472,6 +660,7 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
     from ros_vision_tpu_torch.ops import gather_kernel as gk
+    from ros_vision_tpu_torch.ops import pose
     from ros_vision_tpu_torch.ops import quadfit as qf
     from ros_vision_tpu_torch.ops import segments as segs
     from ros_vision_tpu_torch.ops import sort_kernel as sk
@@ -1014,6 +1203,74 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
            "1920x1080 B=4 S=1025 K=131072", [seg2, y2],
            library=lambda: (mn_out.scatter_reduce_(1, seg2_64, y2, "amin"),
                             mx_out.scatter_reduce_(1, seg2_64, y2, "amax")))
+    # P1 on the homographies of one TorchDetector call on each bench batch
+    # (B=4, the 8-slot tail tier), the same padded with zero slots to the
+    # 128-slot fallback (their outputs NaN), and seeded_homographies'
+    # 4x128 batch (0.5-6 m, tilts to 70 degrees, the planar ambiguity, an
+    # all-zero and a NaN slot a row): one device
+    # launch a call, 10 repeated calls bit-identical, within pose_limits of
+    # the plain version on the card
+    pose_cases = {}
+    for at, frames in (("1280x800 B=4", bench4), ("1920x1080 B=4",
+                                                  bench4_1080)):
+        h, tag_size, *intr = capture_pose_args(dev, frames)
+        check(h.shape[1] == 8, f"{at}: the detector's pose stage ran "
+              f"{h.shape[1]} slots, not the 8-slot tier")
+        pose_cases[f"{at}, 8-slot tier"] = (h, intr)
+        pose_cases[f"{at}, padded to 128 slots"] = (
+            torch.nn.functional.pad(h, (0, 0, 0, 0, 0, 128 - h.shape[1])),
+            intr)
+    seeded = seeded_homographies(4, 128)
+    pose_cases["seeded 4x128"] = (
+        torch.from_numpy(seeded["H"]).to(dev),
+        [torch.from_numpy(seeded[k]).to(dev) for k in ("fx", "fy", "cx",
+                                                       "cy")])
+    err, agree = 0.0, {}
+    for what, (h, intr) in pose_cases.items():
+        got = device_launches(
+            pose.launches, lambda: pose.estimate_poses(h, tag_size, *intr),
+            1, f"estimate_poses on {what}")
+        agree[what] = a = pose_agreement(
+            f"estimate_poses on {what}", got,
+            pose.pose_candidates_plain(h, tag_size, *intr), tag_size)
+        err = max(err, a["max_abs"])
+        print(f"  estimate_poses on {what}: {a['finite']} of {a['slots']} "
+              f"slots finite, non-finite ones in the plain version's "
+              f"places; R {a['max_R']:.3e}, t {a['max_t']:.3e} m, err "
+              f"{a['max_err_rel']:.3e} relative from the plain version "
+              f"(share of pose_limits used {a['limit_used']}; "
+              f"{a['ties_other_way']} candidate ties taken the other way); "
+              "1 device launch a call, 10 repeats bit-identical")
+
+    def p1(case):
+        h, intr = pose_cases[case]
+        return dict(kernel=lambda: pose.estimate_poses(h, tag_size, *intr),
+                    plain=lambda: pose.estimate_poses_plain(h, tag_size,
+                                                            *intr),
+                    inputs=[h, *intr], ops=pose_slots_run(h, *intr)
+                    * POSE_OPS)
+
+    tier = "1280x800 B=4, 8-slot tier"
+    one = (pose_cases[tier][0][:1, :1], [v[:1] for v in pose_cases[tier][1]])
+    pose_cases["one slot"] = one
+    record("estimate_poses", "pose.cu", "ros_vision_tpu/ops/pose.py:107",
+           err, at=tier, **p1(tier),
+           also=[shape_entry(at, **p1(at)) for at in (
+               "1920x1080 B=4, 8-slot tier",
+               "1280x800 B=4, padded to 128 slots",
+               "1920x1080 B=4, padded to 128 slots", "seeded 4x128",
+               "one slot")])
+    row = results[-1]
+    row["tolerance"] = "pose_limits"
+    row["agreement"] = agree
+    # the plain version enqueues ~14,000 launches, which fill the launch
+    # queue, so its device time is the profiler's sum of its kernels
+    for e in [row] + row["also"]:
+        _, dev_ms, n, _ = device_busy_share(p1(e["at"])["plain"], calls=1)
+        e["plain_profiled_ms"], e["plain_launches"] = dev_ms, n
+    print(f"  estimate_poses: one slot alone (one thread, its dependent "
+          f"chain) {row['also'][-1]['ms']:.4f} ms device; "
+          f"{POSE_OPS} f32 operations a slot")
     for r in results:
         for e in [r] + r["also"]:
             print(f"  {r['name']} at {e['at']}: kernel {e['ms']:.4f} ms "
@@ -1023,8 +1280,12 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
                   + ("none" if e["library_ms"] is None else
                      f"{e['library_ms']:.4f} ({e['library_ms_kind']}) / "
                      f"{e['library_call_ms']:.4f} call")
-                  + f"; bound {e['bound_ms']:.5f} ms ({e['bound_by']})")
-        print(f"  {r['name']}: max abs err {r['max_abs_err']} (bit-exact)")
+                  + f"; bound {e['bound_ms']:.5f} ms ({e['bound_by']})"
+                  + ("" if e.get("plain_profiled_ms") is None else
+                     f"; plain under the profiler {e['plain_profiled_ms']:.4f}"
+                     f" ms device, {e['plain_launches']:.0f} launches"))
+        print(f"  {r['name']}: max abs err {r['max_abs_err']} "
+              f"({r.get('tolerance', 'bit-exact')})")
     return results, dict(t4=t4, t2=t2)
 
 
@@ -1054,6 +1315,46 @@ def capture_calls(pts: dict, decim, k: int) -> dict:
         sk.sort_tpu, qf.histogram = real_sort, real_hist
     check(len(hists) == 2, f"cluster_and_fit made {len(hists)} histograms")
     return dict(sorts=sorts, hists=hists)
+
+
+def pose_slots_run(h, fx, fy, cx, cy) -> int:
+    """The slots of a (B, NQ, 3, 3) estimate_poses input whose four sight
+    rays are finite: P1 runs its iterations there and writes NaN at once
+    elsewhere."""
+    import torch
+    from ros_vision_tpu_torch.ops.decode import project
+    tcs = torch.tensor([[-1, 1], [1, 1], [1, -1], [-1, -1]],
+                       dtype=h.dtype, device=h.device)
+    px, py = project(h[..., None, :, :], tcs[:, 0], tcs[:, 1])
+    vx = (px - cx[:, None, None]) / fx[:, None, None]
+    vy = (py - cy[:, None, None]) / fy[:, None, None]
+    return int((torch.isfinite(vx) & torch.isfinite(vy)).all(-1).sum())
+
+
+def capture_pose_args(dev, frames) -> tuple:
+    """The arguments (H, tag_size, fx, fy, cx, cy) of the estimate_poses
+    call that one TorchDetector(estimate_pose=True) call on `frames`
+    makes."""
+    import torch
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+    from ros_vision_tpu_torch.ops import pose
+    _, height, width = frames.shape
+    det = TorchDetector(device=dev, **detector_kw(width, height))
+    calls, real = [], pose.estimate_poses
+
+    def recording(h, tag_size, fx, fy, cx, cy, n_steps=50):
+        calls.append((h.contiguous().clone(), tag_size,
+                      *(v.contiguous().clone() for v in (fx, fy, cx, cy))))
+        return real(h, tag_size, fx, fy, cx, cy, n_steps)
+
+    pose.estimate_poses = recording
+    try:
+        det.detect_raw(torch.from_numpy(np.ascontiguousarray(frames)).to(
+            dev))
+    finally:
+        pose.estimate_poses = real
+    check(len(calls) == 1, f"the detector made {len(calls)} pose calls")
+    return calls[0]
 
 
 def library_sort(ops: list):
@@ -1151,11 +1452,19 @@ def detector_phase(dev, bench4, placed, must: set):
                      for x, y in zip(dets, dets_cpu))
             dp = max(float(np.abs(x.pose_t - y.pose_t).max())
                      for x, y in zip(dets, dets_cpu))
+            dR = max(float(np.abs(x.pose_R - y.pose_R).max())
+                     for x, y in zip(dets, dets_cpu))
             check(dc < 0.1, f"B={b} row {i}: {dc:.4f} px from CPU plain")
+            # poses to millimetres: P1 on the card against the plain
+            # version on the CPU, from homographies that differ by the
+            # corners' rounding
+            check(dp <= 1e-3 and dR <= 1e-3, f"B={b} row {i}: pose_t "
+                  f"{dp * 1e3:.4f} mm, pose_R {dR:.2e} from CPU plain "
+                  "(limits 1 mm, 1e-3)")
             dr = match_corners(dets, placed, 1.0, f"B={b} row {i}")
             print(f"  B={b} row {i}: ids {ids}; corners vs CPU plain "
                   f"{dc:.5f} px, vs rendered {dr:.4f} px; pose_t vs CPU "
-                  f"{dp * 1e3:.4f} mm")
+                  f"{dp * 1e3:.4f} mm, pose_R {dR:.2e}")
         g = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
         times = []
         for _ in range(REPS):

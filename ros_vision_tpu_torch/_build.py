@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # every launcher: (..., int device, void* stream) -> int cudaError_t
 _SIGNATURES = {
     # gray, decim, threshim, launches, b, h, w, min_white_black_diff,
@@ -67,6 +68,8 @@ _SIGNATURES = {
     # seg, val, mn, mx, launches, b, k, s, cluster, threads, chunk, slices,
     # per_slice, per_rank, smem
     "rvt_segment_min_max": [_P] * 5 + [_I] * 10,
+    # h, fx, fy, cx, cy, r, t, err, launches, b, nq, tag_size, n_steps
+    "rvt_estimate_poses": [_P] * 9 + [_I, _I, _F, _I],
 }
 
 
@@ -161,8 +164,9 @@ class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
     else, so a run can show that the main path went through the kernel.
     `kernels` sums the device kernel launches that C launchers which
-    report them (K1-K4, K6-K11) made for those calls. Wrappers may run on
-    several threads at once (parallel/mesh.py), so add() takes a lock."""
+    report them (K1-K4, K6-K11, P1) made for those calls. Wrappers may run
+    on several threads at once (parallel/mesh.py), so add() takes a
+    lock."""
 
     def __init__(self, name: str):
         self.name = name
@@ -209,9 +213,9 @@ CLUSTER_UNPLACEABLE = -1
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call launcher `name` with tensors passed as device pointers (None ->
-    NULL) and ints as ints, on `device`'s current stream; raise if the
-    launch reported an error. The ctypes function is looked up once per
-    name."""
+    NULL), floats as floats and ints as ints, on `device`'s current
+    stream; raise if the launch reported an error. The ctypes function is
+    looked up once per name."""
     fn = _FUNCS.get(name)
     if fn is None:
         fn = _FUNCS[name] = getattr(LIBRARY.get(), name)
@@ -219,7 +223,9 @@ def launch(name: str, device: torch.device, *args) -> None:
     if index is None:
         index = torch.cuda.current_device()
     rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor)
-              else None if a is None else int(a) for a in args],
+              else None if a is None
+              else float(a) if isinstance(a, float) else int(a)
+              for a in args],
             index, _RAW_STREAM(index))
     if rc == CLUSTER_UNPLACEABLE:
         raise RuntimeError(f"{name}: the device cannot place the kernel's "

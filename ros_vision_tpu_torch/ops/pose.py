@@ -8,13 +8,26 @@ object-space error wins. Dense (B, NQ, 3, 3) f32 algebra over all slots.
 Convention (apriltag): camera z out of the lens, x right, y down; tag z
 into the tag. Detection corners p[0..3] <-> tag corners
 (-1,1),(1,1),(1,-1),(-1,-1) scaled by tag_size/2.
+
+estimate_poses dispatches by device: a CPU tensor runs
+estimate_poses_plain, whose loops the host drives op by op; a CUDA tensor
+launches P1, csrc/pose.cu, once a call: one thread a slot runs both
+orthogonal iterations in registers, the counterpart of the JAX function's
+lax.fori_loops. The two agree to f32 rounding, not bit for bit: torch's
+order for its multi-axis sums is its own.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ros_vision_tpu_torch import _build
+from ros_vision_tpu_torch.device import kernel_route
 from ros_vision_tpu_torch.ops import mathf
 from ros_vision_tpu_torch.ops.decode import bmm3, bmv3, project
+
+launches = _build.counter("estimate_poses")
 
 
 def _cross(a, b):
@@ -125,11 +138,11 @@ def _axis_rotation(axis, ang):
     return eye + s * K + c * bmm3(K, K)
 
 
-def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
-                   n_steps: int = 50):
-    """Hdet (B, NQ, 3, 3) canonical detection homographies; per-row
-    intrinsics fx, fy, cx, cy (B,) -> (R (B,NQ,3,3), t (B,NQ,3),
-    err (B,NQ))."""
+def pose_candidates_plain(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
+                          cy, n_steps: int = 50):
+    """estimate_poses_plain before its choice: the homography-seeded
+    candidate (R1, t1, err1), the mirror-seeded one (R2, t2, err2) and
+    sin_a, the sine of the tag normal's angle to the sight line."""
     dev = Hdet.device
     fx1, fy1, cx1, cy1 = (v.reshape(-1, 1) for v in (fx, fy, cx, cy))
     s = tag_size / 2.0
@@ -156,9 +169,57 @@ def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
     axis = axis / sin_a.clamp_min(1e-9)[..., None]
     r2_init = bmm3(_axis_rotation(axis, ang), r1)
     r2, t2, e2 = _orthogonal_iteration(v, obj, r2_init, t1, n_steps)
+    return (r1, t1, e1), (r2, t2, e2), sin_a
 
+
+def estimate_poses_plain(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
+                         cy, n_steps: int = 50):
+    """Plain PyTorch version (any device): Hdet (B, NQ, 3, 3) canonical
+    detection homographies; per-row intrinsics fx, fy, cx, cy (B,) ->
+    (R (B,NQ,3,3), t (B,NQ,3), err (B,NQ)). Dense 3x3 algebra over all
+    slots, its loops on the host (~14,000 launches a call on the card)."""
+    (r1, t1, e1), (r2, t2, e2), sin_a = pose_candidates_plain(
+        Hdet, tag_size, fx, fy, cx, cy, n_steps)
     use2 = (e2 < e1) & (sin_a > 1e-8)
     r = torch.where(use2[..., None, None], r2, r1)
     t = torch.where(use2[..., None], t2, t1)
     err = torch.where(use2, e2, e1)
     return r, t, err
+
+
+def _estimate_poses_cuda(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
+                         cy, n_steps: int = 50):
+    """Launch csrc/pose.cu on a CUDA (B, NQ, 3, 3) f32 tensor and (B,) f32
+    intrinsics: one thread a slot, one launch a call."""
+    b, nq = Hdet.shape[:2]
+    dev = Hdet.device
+    _build.check_tensor(Hdet, "Hdet", torch.float32, (b, nq, 3, 3), dev)
+    for name, v in (("fx", fx), ("fy", fy), ("cx", cx), ("cy", cy)):
+        _build.check_tensor(v, name, torch.float32, (b,), dev)
+    r = torch.empty((b, nq, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((b, nq, 3), dtype=torch.float32, device=dev)
+    err = torch.empty((b, nq), dtype=torch.float32, device=dev)
+    if b * nq == 0:
+        return r, t, err                    # no slot to write
+    made = ctypes.c_int(0)
+    _build.launch("rvt_estimate_poses", dev, Hdet, fx, fy, cx, cy, r, t, err,
+                  ctypes.addressof(made), b, nq, float(tag_size),
+                  int(n_steps))
+    launches.add(made.value)
+    return r, t, err
+
+
+def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
+                   n_steps: int = 50):
+    """Hdet (B, NQ, 3, 3) canonical detection homographies; per-row
+    intrinsics fx, fy, cx, cy (B,) -> (R (B,NQ,3,3), t (B,NQ,3),
+    err (B,NQ)) for every slot; kernel on CUDA, plain version on the
+    CPU."""
+    if kernel_route(Hdet) == "cpu":
+        return estimate_poses_plain(Hdet, tag_size, fx, fy, cx, cy, n_steps)
+    b = Hdet.shape[0]
+    intr = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=Hdet.device).reshape(-1)
+                        .expand(b) for v in (fx, fy, cx, cy)])
+    return _estimate_poses_cuda(Hdet.to(torch.float32).contiguous(),
+                                tag_size, *intr, n_steps)
