@@ -8,7 +8,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
   1. build the kernels (one nvcc per csrc/*.cu, all started together,
      sm_90a) from the checkout;
   2. kernel checks: each of the eleven kernels against its plain PyTorch
-     version on the card, bit-exact (P1, the twelfth, within limits), timed two ways beside its plain
+     version on the card, bit-exact (P1 and P2 within limits), timed two
+     ways beside its plain
      version and, where one PyTorch call computes the same function, that
      call: call_ms, the median of 20 single calls each between its own
      CUDA events (what the eager path pays, the host's enqueue included),
@@ -65,15 +66,29 @@ Phases, each of which raises (and so exits nonzero) on failure:
      NaN slots), one device launch a call, 10 repeats bit-identical,
      within pose_limits of its plain version on the card (not bit-exact:
      f32 sums in other orders), timed also on one slot (its dependent
-     chain), its plain version's device time from the profiler. Before
-     the kernel rows, the launch floor: device and call time of
-     torch.cuda._sleep(0), one launch of a kernel that does nothing;
+     chain), its plain version's device time from the profiler; P2
+     (refine_edges, not a Pallas kernel: the JAX function's
+     _refine_edges_core with its lax.fori_loop undistortion) on the
+     corners one TorchDetector call hands refine_edges on each bench
+     batch (B=4, the 8-slot tier) and on the same moved by a seeded
+     N(0, 0.6 px), each with a zero and a NaN slot a row, at every sample
+     grid tier (32, 64, 128), without distortion and with LENS_DIST, with
+     the normal border and the reversed one on the inverted frames: one
+     device launch a call, 10 repeats bit-identical, corners within
+     REFINE_LIMIT_PX (1e-3 px) of its plain version on the card and
+     non-finite in the same places (the order of its moment sums is its
+     own), timed at the path's shapes with and without distortion, at the
+     128-sample tier and on one slot, its plain version's device time
+     from the profiler. Before the kernel rows, the launch floor: device
+     and call time of torch.cuda._sleep(0), one launch of a kernel that
+     does nothing;
   3. detector at 1280x800 and at 1920x1080: TorchDetector at B=1 and B=4
      on the bench scene (1.5x layout at 1080p) — ids [0, 42, 100, 311] in
      every row, corners within 0.1 px of the same detector's plain path on
      the CPU and within 1 px of the rendered corners, pose_t within 1 mm
      and pose_R within 1e-3 of it, and exactly the front end's kernel set
-     launched (K2 at 1280x800, K6 + K7 at 1920x1080, and P1); then TorchDetector(use_pallas_sort=True) at B=4 at both
+     launched (K2 at 1280x800, K6 + K7 at 1920x1080, P1 and P2); then
+     TorchDetector(use_pallas_sort=True) at B=4 at both
      sizes, its packed output bit-identical to the default's, its kernel
      set the path's plus K9 with 4 K9 calls and 4 kernel launches per
      call (K4: one kernel launch per call on every detector path);
@@ -90,7 +105,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
      none of the port's kernels launched; then the bench tags rendered at
      their lens-distorted corners, rectified on the card and detected by
      TorchDetector: the bench ids in every row, corners within 1 px of the
-     ideal ones, the 1280x800 path's kernels launched;
+     ideal ones, the 1280x800 path's kernels launched; then the calibrated
+     camera's path ([calibrated detector]): the same lens-moved frames
+     detected directly by TorchDetector(**LENS, dist=LENS_DIST,
+     estimate_pose=True), whose refine_edges fits in undistorted
+     coordinates (P2 with its undistortion), on the card and on the CPU at
+     B=1 and B=4: the bench ids in every row, corners within 1 px of the
+     lens-moved truth and 0.1 px of the CPU, pose_t within 1 mm and pose_R
+     within 1e-3 of the CPU, the 1280x800 kernel set; ms/frame at B=1 and
+     B=4 beside the same detector without the distortion, in turns;
   7. game piece: YOLOv11n at 640x640, one class, seeded weights (BatchNorm
      and head biases drawn too), bf16 — the deployed gamepiece_yolo11n
      configuration. 1280x800 BGR frames through preprocess_device, infer
@@ -159,10 +182,11 @@ its tests), so their launches read 0.
 Every path of phases 3-13 runs with the launch counts set to 0 just
 before it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
-K6, K7, K10, K11 and P1 report equal their fixed number per call times
-the calls (K1 1, K2 6, K3 1, K4 1, K6 4, K7 1, K10 1, K11 1, P1 1), and
-K8's equal its plan's (one a round of PROPAGATE_HALO sweeps) summed over
-its calls. P1 launches on every path whose detector estimates poses.
+K6, K7, K10, K11, P1 and P2 report equal their fixed number per call
+times the calls (K1 1, K2 6, K3 1, K4 1, K6 4, K7 1, K10 1, K11 1, P1 1,
+P2 1), and K8's equal its plan's (one a round of PROPAGATE_HALO sweeps)
+summed over its calls. P1 launches on every path whose detector
+estimates poses, P2 on every detector path (and the soak's gate).
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -201,6 +225,15 @@ INT32_OPS_S = 64 * 132 * 1.98e9
 # -0.25) scaled 4x to 1280 px wide, centred on the 1280x800 frame
 LENS = dict(fx=1200.0, fy=1200.0, cx=640.0, cy=400.0)
 LENS_DIST = (-0.25, 0.08, 0.001, -0.001, 0.0)
+
+
+def lens_for(width: int, height: int) -> dict:
+    """LENS scaled to a frame `width` px wide and centred on it (LENS
+    itself at 1280x800)."""
+    s = width / W
+    return dict(fx=LENS["fx"] * s, fy=LENS["fy"] * s, cx=width / 2,
+                cy=height / 2)
+
 BAYER = ("RGGB", "BGGR", "GRBG", "GBRG")
 # YOLOv11n game-piece engine, the deployed gamepiece_yolo11n configuration
 GP_SIZE = 640
@@ -211,9 +244,10 @@ GP_BF16_TOL = (1.0, 5e-3)
 GP_F32_TOL = (0.1, 1e-4)
 # kernels each path must launch; every other kernel must not launch there
 PATH_800 = {"adaptive_threshold", "rank_image", "boundary_compact",
-            "value_histogram", "estimate_poses"}
+            "value_histogram", "refine_edges", "estimate_poses"}
 PATH_1080 = {"adaptive_threshold", "propagate_fixpoint", "label_histogram",
-             "boundary_compact", "value_histogram", "estimate_poses"}
+             "boundary_compact", "value_histogram", "refine_edges",
+             "estimate_poses"}
 # f32 operations of one slot of P1 (csrc/pose.cuh), a division or square
 # root counted as one: the polar rotation's start, 8 Newton steps and sign
 # check; an orthogonal-iteration step without its polar rotation; the
@@ -223,6 +257,27 @@ POSE_POLAR_OPS = 29 + 8 * 59 + 14
 POSE_STEP_OPS = 330 + POSE_POLAR_OPS
 POSE_OPS = (72 + 163 + 54 + POSE_POLAR_OPS + 160
             + 2 * (50 * POSE_STEP_OPS + 168))
+# f32 operations of P2 (csrc/refine.cuh), a division, square root, floor
+# or f64 atan2/cos/sin counted as one, compares and selects not: per term
+# (sample origin 10, two union pixels 12, weight 2, point 6, moments 13),
+# per undistortion of a term (4 + 25 steps of 32 + 4), per edge (its
+# normal and midpoint 16, the tree of its 128 threads' six sums, the line
+# fit 19) and per corner (the intersection 13, the distortion 40)
+REFINE_TERM_OPS = 43
+REFINE_UNDISTORT_OPS = 4 + 25 * 32 + 4
+REFINE_EDGE_OPS = 16 + 6 * 127 + 19
+REFINE_CORNER_OPS = 13
+REFINE_DISTORT_OPS = 40
+
+
+def refine_ops(slots: int, n_alpha: int, have_dist: bool) -> int:
+    """P2's f32 operations on `slots` quad slots: every term of every slot
+    is computed, so the count depends on the shapes and the tier only."""
+    term = REFINE_TERM_OPS + have_dist * REFINE_UNDISTORT_OPS
+    corner = REFINE_CORNER_OPS + have_dist * REFINE_DISTORT_OPS
+    return slots * 4 * (n_alpha * 25 * term + REFINE_EDGE_OPS + corner)
+
+
 # the card's name and power limit (nvidia-smi), printed beside the times
 CARD = ""
 
@@ -493,7 +548,7 @@ def check_kernel_set(what: str, counts: dict, must: set) -> None:
 def check_device_launches(what: str, counts: dict,
                           propagate: int = 0) -> None:
     """The device launches that the C launchers of K1, K2, K3, K4, K6, K7,
-    K10, K11 and P1 reported over a path's run: their fixed number per
+    K10, K11, P1 and P2 reported over a path's run: their fixed number per
     call times the calls; and K8's: `propagate`, the sum of its calls'
     plans."""
     from ros_vision_tpu_torch import _build
@@ -507,7 +562,8 @@ def check_device_launches(what: str, counts: dict,
                            ("propagate_fixpoint", ck.FIXPOINT_LAUNCHES),
                            ("label_histogram", ck.HISTOGRAM_LAUNCHES),
                            ("value_histogram", 1), ("table_take_cm", 1),
-                           ("segment_min_max", 1), ("estimate_poses", 1)):
+                           ("segment_min_max", 1), ("estimate_poses", 1),
+                           ("refine_edges", 1)):
         check(kernels[name] == per_call * counts[name],
               f"{what}: {name} made {kernels[name]} device launches in "
               f"{counts[name]} calls, not {per_call} each")
@@ -658,6 +714,7 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     import torch
     from ros_vision_tpu_torch.ops import ccl
     from ros_vision_tpu_torch.ops import ccl_kernel as ck
+    from ros_vision_tpu_torch.ops import decode as dec
     from ros_vision_tpu_torch.ops import frontend_kernel as fk
     from ros_vision_tpu_torch.ops import gather_kernel as gk
     from ros_vision_tpu_torch.ops import pose
@@ -1271,6 +1328,106 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     print(f"  estimate_poses: one slot alone (one thread, its dependent "
           f"chain) {row['also'][-1]['ms']:.4f} ms device; "
           f"{POSE_OPS} f32 operations a slot")
+
+    # P2 on the corners one TorchDetector call hands refine_edges on each
+    # bench batch (B=4, the 8-slot tier) and the same moved by a seeded
+    # N(0, 0.6 px), each with a zero and a NaN slot a row; every sample
+    # grid tier; no distortion and LENS_DIST (the lens centred on the
+    # frame); the normal border, and the reversed one on the inverted
+    # frames: within REFINE_LIMIT_PX of the plain version on the card,
+    # non-finite in the same places, one device launch a call, 10 repeats
+    # bit-identical
+    rng = np.random.default_rng(14)
+    refine_inputs, path_tier, err, worst = {}, {}, 0.0, {}
+    for at, frames in (("1280x800 B=4", bench4), ("1920x1080 B=4",
+                                                   bench4_1080)):
+        g, c, v, rb = capture_refine_args(dev, frames)
+        check(c.shape[1] == 8 and not rb, f"{at}: refine ran {c.shape[1]} "
+              f"slots (reversed border {rb}), not the 8-slot tier")
+        b = c.shape[0]
+        lens = lens_for(g.shape[2], g.shape[1])
+        intr = tuple(torch.full((b,), x, device=dev) for x in lens.values())
+        dist = torch.tensor([LENS_DIST] * b, dtype=torch.float32,
+                            device=dev)
+        refine_inputs[at] = (g, c, v, intr, dist)
+        path_tier[at] = dec.REFINE_ALPHA_TIERS[dec.refine_tier(c, v)]
+        moved = c + torch.from_numpy(rng.normal(
+            0, 0.6, tuple(c.shape)).astype(np.float32)).to(dev)
+        extra = torch.zeros((b, 2, 4, 2), device=dev)
+        extra[:, 1] = float("nan")
+        v_ex = torch.cat([v, torch.ones((b, 2), dtype=torch.bool,
+                                        device=dev)], 1)
+        for corners_at, cc in (("detector corners", c), ("moved", moved)):
+            cc = torch.cat([cc, extra], 1).contiguous()
+            for rev in (False, True):
+                gg = (255 - g) if rev else g
+                for lens_at, lr in (("dist 0", (None, None)),
+                                    ("LENS_DIST", (intr, dist))):
+                    rows = dec.lens_rows(*lr, b, dev)
+                    for n_alpha in dec.REFINE_ALPHA_TIERS:
+                        what = (f"refine_edges on {at} {corners_at}, "
+                                f"{lens_at}, {n_alpha} samples, "
+                                f"{'reversed' if rev else 'normal'} border")
+                        got = device_launches(
+                            dec.launches, lambda: dec._refine_edges_cuda(
+                                gg, cc, v_ex, *rows, n_alpha, rev), 1, what)
+                        want = dec.refine_edges_plain(gg, cc, v_ex, *lr,
+                                                      n_alpha, rev)
+                        e = refine_err(what, got, want)
+                        err = max(err, e)
+                        key = f"{at}, {lens_at}"
+                        worst[key] = max(worst.get(key, 0.0), e)
+    for key, e in worst.items():
+        print(f"  refine_edges on {key}: at most {e:.3e} px from the plain "
+              "version on the card over the detector's and moved corners "
+              "with a zero and a NaN slot a row, 3 tiers, both borders; 1 "
+              "device launch a call, 10 repeats bit-identical")
+
+    def p2(case):
+        """The kernel, its plain version and the bound on the captured
+        corners of a batch's first b rows and nq slots, at n_alpha."""
+        at, lens_at, n_alpha, b, nq = case
+        g, c, v, intr, dist = refine_inputs[at]
+        g = g[:b]
+        c, v = c[:b, :nq].contiguous(), v[:b, :nq].contiguous()
+        lr = (None, None) if lens_at == "dist 0" else (
+            tuple(x[:b] for x in intr), dist[:b])
+        rows = dec.lens_rows(*lr, b, dev)
+        return dict(
+            kernel=lambda: dec._refine_edges_cuda(g, c, v, *rows, n_alpha),
+            plain=lambda: dec.refine_edges_plain(g, c, v, *lr, n_alpha),
+            inputs=[c, v, *(x for x in rows if x is not None),
+                    refine_pixels(g, c, n_alpha)],
+            ops=refine_ops(c.shape[0] * c.shape[1], n_alpha,
+                           lr[0] is not None))
+
+    # the path's tier (the longest bench edge at 1920x1080 needs 64
+    # samples), then the 128-sample grid and one slot alone
+    refine_rows = {f"{at}, {lens_at}, 8-slot tier, {n} samples": (
+        at, lens_at, n, 4, 8) for at, lens_at, n in [
+            (at, lens_at, path_tier[at]) for at in refine_inputs
+            for lens_at in ("dist 0", "LENS_DIST")]
+        + [("1280x800 B=4", "LENS_DIST", 128)]}
+    one = path_tier["1280x800 B=4"]
+    refine_rows[f"1280x800, LENS_DIST, one slot, {one} samples"] = (
+        "1280x800 B=4", "LENS_DIST", one, 1, 1)
+    main_row, *other_rows = refine_rows
+    record("refine_edges", "refine.cu", "ros_vision_tpu/ops/decode.py:126",
+           err, at=main_row, **p2(refine_rows[main_row]),
+           also=[shape_entry(at, **p2(refine_rows[at]))
+                 for at in other_rows])
+    row = results[-1]
+    row["tolerance"] = f"{REFINE_LIMIT_PX} px"
+    # the plain version enqueues 250-1,300 launches, which can fill the
+    # launch queue, so its device time is the profiler's sum of its kernels
+    for e in [row] + row["also"]:
+        _, dev_ms, n, _ = device_busy_share(p2(refine_rows[e["at"]])["plain"],
+                                            calls=1)
+        e["plain_profiled_ms"], e["plain_launches"] = dev_ms, n
+    print(f"  refine_edges: one slot alone (its 128 threads' dependent "
+          f"chains) {row['also'][-1]['ms']:.4f} ms device against the launch "
+          f"floor's {floor['device_ms']:.4f}; {REFINE_TERM_OPS} f32 "
+          f"operations a term, {REFINE_UNDISTORT_OPS} more undistorting it")
     for r in results:
         for e in [r] + r["also"]:
             print(f"  {r['name']} at {e['at']}: kernel {e['ms']:.4f} ms "
@@ -1354,6 +1511,67 @@ def capture_pose_args(dev, frames) -> tuple:
     finally:
         pose.estimate_poses = real
     check(len(calls) == 1, f"the detector made {len(calls)} pose calls")
+    return calls[0]
+
+
+REFINE_LIMIT_PX = 1e-3    # P2 vs its plain version: the CPU tests' atol
+
+
+def refine_err(what: str, got, want) -> float:
+    """Max abs difference of P2's corners from its plain version's; raises
+    unless the non-finite ones lie in the same places and the rest within
+    REFINE_LIMIT_PX."""
+    import torch
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin),
+          f"{what}: non-finite corners in other places than the plain "
+          "version's")
+    err = float((got[fin] - want[fin]).abs().max())
+    check(err <= REFINE_LIMIT_PX, f"{what}: {err:.3e} px from the plain "
+          f"version (limit {REFINE_LIMIT_PX})")
+    return err
+
+
+def refine_pixels(g, c, n_alpha: int):
+    """A stand-in input of one byte per distinct in-frame pixel that P2's
+    samples of corners `c` read: the bytes the kernel must read of `g`."""
+    import torch
+    from ros_vision_tpu_torch.ops import decode as dec
+    b, h, w = g.shape
+    terms = dec.refine_terms_plain(g.to(torch.float32), c, n_alpha)
+    idx, ok = dec._int_index(terms["ux"], terms["uy"], h, w)
+    flat = idx.to(torch.int64) + h * w * torch.arange(
+        b, device=g.device).view(b, 1, 1, 1, 1)
+    return torch.empty(int(flat[ok].unique().numel()), dtype=torch.uint8)
+
+
+def capture_refine_args(dev, frames) -> tuple:
+    """The gray, corners, quad_valid and reversed_border of the
+    refine_edges call that one TorchDetector(estimate_pose=True) call on
+    `frames` makes."""
+    import torch
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+    from ros_vision_tpu_torch.ops import decode as dec
+    _, height, width = frames.shape
+    det = TorchDetector(device=dev, **detector_kw(width, height))
+    calls, real = [], dec.refine_edges
+
+    def recording(gray, corners, quad_valid, intr=None, dist=None,
+                  reversed_border=False, syncs=None):
+        check(intr is None and dist is None, "the bench detector refined "
+              "with a calibration")
+        calls.append((gray.contiguous().clone(), corners.contiguous().clone(),
+                      quad_valid.contiguous().clone(), reversed_border))
+        return real(gray, corners, quad_valid, intr, dist, reversed_border,
+                    syncs)
+
+    dec.refine_edges = recording
+    try:
+        det.detect_raw(torch.from_numpy(np.ascontiguousarray(frames)).to(
+            dev))
+    finally:
+        dec.refine_edges = real
+    check(len(calls) == 1, f"the detector made {len(calls)} refine calls")
     return calls[0]
 
 
@@ -1717,9 +1935,7 @@ def rectify_phase(dev, bench4, placed):
     ideal (undistorted) ones."""
     import torch
     from ros_vision_tpu_torch import _build
-    from ros_vision_tpu_torch.apriltag import geometry
     from ros_vision_tpu_torch.apriltag.detector import TorchDetector
-    from ros_vision_tpu_torch.apriltag.render import render_scene
     from ros_vision_tpu_torch.ops import rectify
 
     g = torch.from_numpy(bench4).to(dev)
@@ -1754,12 +1970,7 @@ def rectify_phase(dev, bench4, placed):
     paths["rectify"] = counts
 
     ideal = [p.corners for p in placed]
-    ids = [p.tag_id for p in placed]
-    warped = [geometry.distort_points(q, LENS["fx"], LENS["fy"], LENS["cx"],
-                                      LENS["cy"], np.asarray(LENS_DIST))
-              for q in ideal]
-    frames = np.stack([render_scene(ids, warped, W, H, noise_sigma=1.0,
-                                    seed=s)[0] for s in range(4)])
+    frames, warped = lens_frames(placed)
     rec = rectify.Rectifier(W, H, **LENS, dist=LENS_DIST, device=dev)
     det = TorchDetector(device=dev, width=W, height=H, **LENS)
     gw = torch.from_numpy(frames).to(dev)
@@ -1783,6 +1994,98 @@ def rectify_phase(dev, bench4, placed):
               f"to {shift:.2f} px)")
     out["rectified_max_corner_err_px"] = worst
     return out, paths
+
+
+def lens_frames(placed, width: int = W, height: int = H, b: int = 4,
+                noise: float = 1.0) -> tuple:
+    """The bench tags `placed` rendered at their corners moved through the
+    lens (lens_for(width, height), LENS_DIST): (B, H, W) frames, noise
+    seeds 0..B-1, and each tag's moved corners."""
+    from ros_vision_tpu_torch.apriltag import geometry
+    from ros_vision_tpu_torch.apriltag.render import render_scene
+    lens = lens_for(width, height)
+    warped = [geometry.distort_points(p.corners, *lens.values(),
+                                      np.asarray(LENS_DIST)) for p in placed]
+    ids = [p.tag_id for p in placed]
+    frames = np.stack([render_scene(ids, warped, width, height,
+                                    noise_sigma=noise, seed=s)[0]
+                       for s in range(b)])
+    return frames, warped
+
+
+def calibrated_detector_phase(dev, placed):
+    """The calibrated camera's path: the bench tags rendered through the
+    lens (LENS, LENS_DIST) at 1280x800 B=4 and detected directly, without
+    rectification, by TorchDetector(**LENS, dist=LENS_DIST,
+    estimate_pose=True), whose refine_edges fits each edge in undistorted
+    coordinates (P2's 25-step undistortion): on the card and on the CPU at
+    B=1 and B=4, the bench ids in every row, corners within 1 px of the
+    moved truth and 0.1 px of the CPU, pose within 1 mm and 1e-3 of the
+    CPU, the 1280x800 kernel set; ms/frame at B=1 and B=4 (median of
+    REPS, host clock around detect_raw_packed and a synchronize) beside
+    the same detector without the distortion on the same frames, the two
+    taken in turns."""
+    import types
+
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import TorchDetector
+
+    frames, warped = lens_frames(placed)
+    truth = [types.SimpleNamespace(tag_id=p.tag_id, corners=q)
+             for p, q in zip(placed, warped)]
+    kw = dict(width=W, height=H, **LENS, estimate_pose=True)
+    det = TorchDetector(device=dev, dist=LENS_DIST, **kw)
+    cpu = TorchDetector(device="cpu", dist=LENS_DIST, **kw)
+    dist_free = TorchDetector(device=dev, **kw)
+    det.detect(frames)                                    # warm-up
+    dist_free.detect(frames)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    out = {}
+    for b in (1, 4):
+        rows = det.detect(frames[:b])
+        rows_cpu = cpu.detect(frames[:b])
+        for i, (dets, dets_cpu) in enumerate(zip(rows, rows_cpu)):
+            ids = [d.tag_id for d in dets]
+            check(ids == BENCH_IDS, f"calibrated B={b} row {i}: ids {ids}")
+            check([d.tag_id for d in dets_cpu] == ids,
+                  f"calibrated B={b} row {i}: CPU ids differ")
+            dc = max(float(np.abs(x.corners - y.corners).max())
+                     for x, y in zip(dets, dets_cpu))
+            dp = max(float(np.abs(x.pose_t - y.pose_t).max())
+                     for x, y in zip(dets, dets_cpu))
+            dR = max(float(np.abs(x.pose_R - y.pose_R).max())
+                     for x, y in zip(dets, dets_cpu))
+            check(dc < 0.1, f"calibrated B={b} row {i}: {dc:.4f} px from "
+                  "the CPU")
+            check(dp <= 1e-3 and dR <= 1e-3, f"calibrated B={b} row {i}: "
+                  f"pose_t {dp * 1e3:.4f} mm, pose_R {dR:.2e} from the CPU "
+                  "(limits 1 mm, 1e-3)")
+            dr = match_corners(dets, truth, 1.0, f"calibrated B={b} row {i}")
+            print(f"  calibrated B={b} row {i}: ids {ids}; corners vs CPU "
+                  f"{dc:.5f} px, vs the lens-moved truth {dr:.4f} px; "
+                  f"pose_t vs CPU {dp * 1e3:.4f} mm, pose_R {dR:.2e}")
+    torch.cuda.synchronize()
+    counts = _build.counts()
+    check_kernel_set("calibrated detector", counts, PATH_800)
+    check_device_launches("calibrated detector", counts)
+    for b in (1, 4):
+        g = torch.from_numpy(np.ascontiguousarray(frames[:b])).to(dev)
+        times = {"calibrated": [], "dist_free": []}
+        for _ in range(REPS):
+            for name, d in (("calibrated", det), ("dist_free", dist_free)):
+                t0 = time.perf_counter()
+                d.detect_raw_packed(g)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        out[b] = {f"{name}_ms_per_frame": statistics.median(v) / b
+                  for name, v in times.items()}
+        print(f"  B={b}: calibrated {out[b]['calibrated_ms_per_frame']:.3f} "
+              f"ms/frame, without the distortion "
+              f"{out[b]['dist_free_ms_per_frame']:.3f} (medians of {REPS}, "
+              "in turns, host clock incl. sync)")
+    return out, {"calibrated detector 1280x800": counts}
 
 
 def seeded_game_piece_weights(engine, seed: int = 1):
@@ -2906,6 +3209,9 @@ def main() -> int:
     print(f"[rectify {W}x{H} B=4]")
     rectified, rect_paths = rectify_phase(dev, bench4, bench[0][1])
     paths.update(rect_paths)
+    print(f"[calibrated detector {W}x{H}]")
+    calibrated, cal_paths = calibrated_detector_phase(dev, bench[0][1])
+    paths.update(cal_paths)
     print(f"[game piece YOLOv11n {GP_SIZE} bf16]")
     game_piece, gp_paths = game_piece_phase(dev)
     paths.update(gp_paths)
@@ -2935,6 +3241,8 @@ def main() -> int:
                                         for b, v in det_1080.items()},
                       "use_pallas_sort_b4_ms_per_call": sorted_ms,
                       "system": system, "rectify": rectified,
+                      "calibrated_detector": {
+                          str(b): v for b, v in calibrated.items()},
                       "game_piece": game_piece, "train": trained,
                       "extrinsic": extrinsic, **added}))
     print(json.dumps({"kernels": kernels}))

@@ -70,6 +70,9 @@ _SIGNATURES = {
     "rvt_segment_min_max": [_P] * 5 + [_I] * 10,
     # h, fx, fy, cx, cy, r, t, err, launches, b, nq, tag_size, n_steps
     "rvt_estimate_poses": [_P] * 9 + [_I, _I, _F, _I],
+    # gray, corners, quad_valid, intr, dist, out, launches, b, nq, h, w,
+    # n_alpha, have_dist, reversed_border
+    "rvt_refine_edges": [_P] * 7 + [_I] * 7,
 }
 
 
@@ -164,7 +167,7 @@ class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch and nowhere
     else, so a run can show that the main path went through the kernel.
     `kernels` sums the device kernel launches that C launchers which
-    report them (K1-K4, K6-K11, P1) made for those calls. Wrappers may run
+    report them (K1-K4, K6-K11, P1, P2) made for those calls. Wrappers may run
     on several threads at once (parallel/mesh.py), so add() takes a
     lock."""
 

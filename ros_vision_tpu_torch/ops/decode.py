@@ -11,16 +11,26 @@ family's (4*n_codes, nbits) bit matrix. No result depends on the
 process's TF32 flags: the sharpening is shifted f32 slices, the 3x3
 products are broadcast multiplies summed over the contracted axis (bmm3,
 bmv3), and the code match's matmul is exact in TF32 too.
+
+refine_edges dispatches by device: a CPU tensor runs refine_edges_plain,
+whose 25-step undistortion the host drives op by op; a CUDA tensor
+launches P2, csrc/refine.cu, once a call, the counterpart of the JAX
+function's _refine_edges_core with its lax.fori_loop. The two give the
+same sample positions, weights and undistorted points bit for bit; only
+the order of the six moment sums differs.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.apriltag.families import TagFamily
+from ros_vision_tpu_torch.device import kernel_route
 from ros_vision_tpu_torch.ops import mathf
 
 QUAD_DECIMATE = 2
@@ -28,6 +38,8 @@ DECODE_SHARPENING = 0.25
 MAX_HAMMING = 2
 REFINE_ALPHA_TIERS = (32, 64, 128)
 REFINE_NORMAL_STEPS = 25      # range +-(quad_decimate+1), step 0.25
+
+launches = _build.counter("refine_edges")
 
 
 def bmm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -81,14 +93,21 @@ def _bilinear(gray_f: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return v, ok
 
 
-def _int_sample(gray_f: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
-    """Integer-truncation sample with bounds; indices clipped."""
-    b, h, w = gray_f.shape
+def _int_index(px: torch.Tensor, py: torch.Tensor, h: int, w: int):
+    """Flat index (clipped into the frame) and in-bounds flag of the
+    integer-truncation sample at px, py."""
     xi = px.to(torch.int32)
     yi = py.to(torch.int32)
     ok = (px >= 0) & (py >= 0) & (xi < w) & (yi < h)
-    idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1)
-    v = torch.gather(gray_f.reshape(b, -1), 1, idx.to(torch.int64))
+    return yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1), ok
+
+
+def _int_sample(gray_f: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """Integer-truncation sample with bounds; indices clipped."""
+    b, h, w = gray_f.shape
+    idx, ok = _int_index(px, py, h, w)
+    v = torch.gather(gray_f.reshape(b, -1), 1,
+                     idx.reshape(b, -1).to(torch.int64))
     return v.reshape(px.shape), ok
 
 
@@ -147,24 +166,77 @@ def refine_edges(gray: torch.Tensor, corners: torch.Tensor,
                  reversed_border: bool = False, syncs=None) -> torch.Tensor:
     """Subpixel edge refinement of corners (B, NQ, 4, 2) full-res.
     intr: (fx, fy, cx, cy) tuple of (B,) tensors and dist (B, 5) to refine
-    in undistorted coordinates; None to skip undistortion."""
+    in undistorted coordinates; None to skip undistortion. P2 on CUDA,
+    the plain version on the CPU."""
     n_alpha = REFINE_ALPHA_TIERS[refine_tier(corners, quad_valid, syncs)]
-    return _refine_edges_core(gray, corners, quad_valid, intr, dist,
-                              n_alpha, reversed_border)
+    if kernel_route(corners) == "cpu":
+        return refine_edges_plain(gray, corners, quad_valid, intr, dist,
+                                  n_alpha, reversed_border)
+    return _refine_edges_cuda(
+        gray.contiguous(), corners.to(torch.float32).contiguous(),
+        quad_valid.contiguous(), *lens_rows(intr, dist, corners.shape[0],
+                                            corners.device),
+        n_alpha, reversed_border)
 
 
-def _refine_edges_core(gray, corners, quad_valid, intr, dist, n_alpha: int,
-                       reversed_border: bool = False):
+def lens_rows(intr, dist, b: int, device: torch.device):
+    """refine_edges' (fx, fy, cx, cy) and dist as P2's contiguous f32 (B, 4)
+    and (B, 5) rows; (None, None) without calibration."""
+    if intr is None or dist is None:
+        return None, None
+    f32 = torch.float32
+    rows = torch.stack([torch.as_tensor(v, dtype=f32, device=device)
+                        .reshape(-1).expand(b) for v in intr], 1)
+    d = torch.as_tensor(dist, dtype=f32, device=device).reshape(-1, 5)
+    return rows, d.expand(b, 5).contiguous()
+
+
+def _refine_edges_cuda(gray: torch.Tensor, corners: torch.Tensor,
+                       quad_valid: torch.Tensor, intr, dist, n_alpha: int,
+                       reversed_border: bool = False) -> torch.Tensor:
+    """Launch csrc/refine.cu on CUDA gray (B, H, W) u8, corners (B, NQ, 4,
+    2) f32, quad_valid (B, NQ) bool and lens_rows' intr (B, 4) and dist
+    (B, 5), or None for both: one block a slot, one launch a call."""
+    b, nq = corners.shape[:2]
+    h, w = gray.shape[1:]
+    dev = corners.device
+    _build.check_tensor(gray, "gray", torch.uint8, (b, h, w), dev)
+    _build.check_tensor(corners, "corners", torch.float32, (b, nq, 4, 2),
+                        dev)
+    _build.check_tensor(quad_valid, "quad_valid", torch.bool, (b, nq), dev)
+    have_dist = intr is not None
+    if have_dist:
+        _build.check_tensor(intr, "intr", torch.float32, (b, 4), dev)
+        _build.check_tensor(dist, "dist", torch.float32, (b, 5), dev)
+    out = torch.empty_like(corners)
+    if b * nq == 0:
+        return out                          # no slot to write
+    made = ctypes.c_int(0)
+    _build.launch("rvt_refine_edges", dev, gray, corners, quad_valid, intr,
+                  dist, out, ctypes.addressof(made),
+                  b, nq, h, w, int(n_alpha), int(have_dist),
+                  int(reversed_border))
+    launches.add(made.value)
+    return out
+
+
+def refine_terms_plain(gray_f: torch.Tensor, corners: torch.Tensor,
+                       n_alpha: int, reversed_border: bool = False,
+                       intr=None, dist=None) -> dict:
+    """The per-sample terms of refine_edges_plain on gray_f (B, H, W) f32:
+    the union of the normal rays' sample positions ux, uy (B, NQ, 4,
+    n_alpha, 33), and each term's weight wgt and point xo, yo (B, NQ, 4,
+    n_alpha, 25), undistorted where intr and dist are given."""
     dev = corners.device
     f32 = torch.float32
-    gray_f = gray.to(f32)
     have_dist = intr is not None and dist is not None
 
     pa = corners
     pb = torch.roll(corners, -1, dims=2)
     nx = pb[..., 1] - pa[..., 1]
     ny = -pb[..., 0] + pa[..., 0]
-    mag = torch.sqrt(nx * nx + ny * ny)
+    # correctly rounded, as P2's (torch's vectorised CPU sqrt is not)
+    mag = mathf.sqrt(nx * nx + ny * ny)
     mag_safe = torch.where(mag == 0, 1e-6, mag)
     nx = nx / mag_safe
     ny = ny / mag_safe
@@ -193,7 +265,9 @@ def _refine_edges_core(gray, corners, quad_valid, intr, dist, n_alpha: int,
     uoff = -rng - grange + 0.25 * torch.arange(n_union, dtype=f32,
                                                device=dev)
     uoffb = uoff[None, None, None, None, :]
-    gu, oku = _int_sample(gray_f, x0b + uoffb * nxb, y0b + uoffb * nyb)
+    ux = x0b + uoffb * nxb
+    uy = y0b + uoffb * nyb
+    gu, oku = _int_sample(gray_f, ux, uy)
     g1 = gu[..., gsteps:]
     ok1 = oku[..., gsteps:]
     g2 = gu[..., :REFINE_NORMAL_STEPS]
@@ -205,6 +279,19 @@ def _refine_edges_core(gray, corners, quad_valid, intr, dist, n_alpha: int,
     yo = y0b + noffb * nyb
     if have_dist:
         xo, yo = _undistort(xo, yo, intr, dist)
+    return dict(ux=ux, uy=uy, wgt=wgt, xo=xo, yo=yo)
+
+
+def refine_edges_plain(gray, corners, quad_valid, intr, dist, n_alpha: int,
+                       reversed_border: bool = False):
+    """refine_edges on the n_alpha-sample grid in plain PyTorch (the JAX
+    package's _refine_edges_core op for op): what P2 computes."""
+    terms = refine_terms_plain(gray.to(torch.float32), corners, n_alpha,
+                               reversed_border, intr, dist)
+    have_dist = intr is not None and dist is not None
+    pa = corners
+    pb = torch.roll(corners, -1, dims=2)
+    wgt, xo, yo = terms["wgt"], terms["xo"], terms["yo"]
     emx = 0.5 * (pa[..., 0] + pb[..., 0])[..., None, None]
     emy = 0.5 * (pa[..., 1] + pb[..., 1])[..., None, None]
     xod = xo - emx

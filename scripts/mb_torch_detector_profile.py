@@ -4,13 +4,17 @@ split over the call's stages.
 
     python3 scripts/mb_torch_detector_profile.py [--root DIR] [--label NAME]
         [--reps N] [--sizes 1280x800,1920x1080] [--batches 1,4]
-        [--device cuda]
+        [--dist none|lens] [--device cuda]
 
 Imports ros_vision_tpu_torch from --root (default: this checkout; give an
 unpacked copy of another commit to compare two trees on one card, calling
 the script for each in turn). On chip_smoke.py's bench scenes (1280x800,
 noise 1; the layout x1.5 at 1920x1080, noise 0.75), at each batch, it
-measures detect_raw_packed:
+measures detect_raw_packed of a detector with fx = fy = 900 centred on the
+frame. With --dist lens the scenes' tags are rendered through
+chip_smoke.py's lens (lens_for the frame size, LENS_DIST) and the detector
+is calibrated with that lens, so refine_edges fits in undistorted
+coordinates: the calibrated camera's call.
 
 - call_ms: the median of --reps calls on the host clock, each ended by a
   synchronize;
@@ -74,6 +78,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--sizes", default="1280x800,1920x1080")
     ap.add_argument("--batches", default="1,4")
+    ap.add_argument("--dist", choices=("none", "lens"), default="none")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -129,11 +134,16 @@ def main() -> int:
         w, h = (int(v) for v in size.split("x"))
         default = (w, h) in ((cs.W, cs.H), (cs.W2, cs.H2))
         noise = cs.NOISE_1080 if (w, h) == (cs.W2, cs.H2) else 1.0
-        frames = np.stack([cs.bench_scene(seed, w, h, noise)[0]
-                           for seed in range(max(batches))])
-        det = det_mod.TorchDetector(
-            device=dev, width=w, height=h, fx=900.0, fy=900.0, cx=w / 2,
-            cy=h / 2, estimate_pose=True)
+        if args.dist == "lens":
+            frames, _ = cs.lens_frames(cs.bench_scene(0, w, h, noise)[1], w,
+                                       h, max(batches), noise)
+            lens = dict(**cs.lens_for(w, h), dist=cs.LENS_DIST)
+        else:
+            frames = np.stack([cs.bench_scene(seed, w, h, noise)[0]
+                               for seed in range(max(batches))])
+            lens = dict(fx=900.0, fy=900.0, cx=w / 2, cy=h / 2)
+        det = det_mod.TorchDetector(device=dev, width=w, height=h,
+                                    estimate_pose=True, **lens)
         for b in batches:
             g = torch.from_numpy(np.ascontiguousarray(frames[:b])).to(dev)
             intr = torch.as_tensor(det.default_intrinsics(b), device=dev)
@@ -201,7 +211,8 @@ def main() -> int:
             stages["other"]["host_ms"] = wrapped_ms - sum(
                 host_stage_ms.values())
             rec = {"label": args.label, "root": str(root), "size": size,
-                   "B": b, "call_ms": statistics.median(times),
+                   "B": b, "dist": args.dist,
+                   "call_ms": statistics.median(times),
                    "call_ms_all": times,
                    "launches": len(ops) / n_prof,
                    "device_ms": sum(op_us(e) for e in ops) / 1e3 / n_prof,
