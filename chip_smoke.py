@@ -257,25 +257,23 @@ POSE_POLAR_OPS = 29 + 8 * 59 + 14
 POSE_STEP_OPS = 330 + POSE_POLAR_OPS
 POSE_OPS = (72 + 163 + 54 + POSE_POLAR_OPS + 160
             + 2 * (50 * POSE_STEP_OPS + 168))
-# f32 operations of P2 (csrc/refine.cuh), a division, square root, floor
-# or f64 atan2/cos/sin counted as one, compares and selects not: per term
-# (sample origin 10, two union pixels 12, weight 2, point 6, moments 13),
-# per undistortion of a term (4 + 25 steps of 32 + 4), per edge (its
-# normal and midpoint 16, the tree of its 128 threads' six sums, the line
-# fit 19) and per corner (the intersection 13, the distortion 40)
-REFINE_TERM_OPS = 43
-REFINE_UNDISTORT_OPS = 4 + 25 * 32 + 4
-REFINE_EDGE_OPS = 16 + 6 * 127 + 19
+# f32 operations that refine_edges needs (refine_work counts them on a
+# call's data), each computed once, a division, square root, floor or f64
+# atan2/cos/sin counted as one, compares and selects not, the camera's
+# 2 p1 and 2 p2 once: per finite edge its normal, length, sample count and
+# midpoint (15), its normal times the 33 union offsets (66) and its line
+# fit (19); per live sample (s < ns) its origin (8) and its 33 union
+# positions (66), whose middle 25 are the terms' points; per term of
+# weight > 0 (a zero weight adds nothing to finite sums) its weight (2),
+# its six moments (13) and the undistortion of its point (4 + 25 steps of
+# 30 + 4); per corner of a valid finite slot the intersection (13) and the
+# distortion (38)
+REFINE_EDGE_OPS = 15 + 66 + 19
+REFINE_SAMPLE_OPS = 8 + 66
+REFINE_TERM_OPS = 2 + 13
+REFINE_UNDISTORT_OPS = 4 + 25 * 30 + 4
 REFINE_CORNER_OPS = 13
-REFINE_DISTORT_OPS = 40
-
-
-def refine_ops(slots: int, n_alpha: int, have_dist: bool) -> int:
-    """P2's f32 operations on `slots` quad slots: every term of every slot
-    is computed, so the count depends on the shapes and the tier only."""
-    term = REFINE_TERM_OPS + have_dist * REFINE_UNDISTORT_OPS
-    corner = REFINE_CORNER_OPS + have_dist * REFINE_DISTORT_OPS
-    return slots * 4 * (n_alpha * 25 * term + REFINE_EDGE_OPS + corner)
+REFINE_DISTORT_OPS = 38
 
 
 # the card's name and power limit (nvidia-smi), printed beside the times
@@ -1345,11 +1343,12 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
         check(c.shape[1] == 8 and not rb, f"{at}: refine ran {c.shape[1]} "
               f"slots (reversed border {rb}), not the 8-slot tier")
         b = c.shape[0]
-        lens = lens_for(g.shape[2], g.shape[1])
-        intr = tuple(torch.full((b,), x, device=dev) for x in lens.values())
-        dist = torch.tensor([LENS_DIST] * b, dtype=torch.float32,
-                            device=dev)
-        refine_inputs[at] = (g, c, v, intr, dist)
+        # the detector's (B, 9) intrinsics row, handed over as two views
+        row = torch.tensor([[*lens_for(g.shape[2], g.shape[1]).values(),
+                             *LENS_DIST]] * b, dtype=torch.float32,
+                           device=dev)
+        lens = (row[:, :4], row[:, 4:9])
+        refine_inputs[at] = (g, c, v, lens)
         path_tier[at] = dec.REFINE_ALPHA_TIERS[dec.refine_tier(c, v)]
         moved = c + torch.from_numpy(rng.normal(
             0, 0.6, tuple(c.shape)).astype(np.float32)).to(dev)
@@ -1362,15 +1361,14 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
             for rev in (False, True):
                 gg = (255 - g) if rev else g
                 for lens_at, lr in (("dist 0", (None, None)),
-                                    ("LENS_DIST", (intr, dist))):
-                    rows = dec.lens_rows(*lr, b, dev)
+                                    ("LENS_DIST", lens)):
                     for n_alpha in dec.REFINE_ALPHA_TIERS:
                         what = (f"refine_edges on {at} {corners_at}, "
                                 f"{lens_at}, {n_alpha} samples, "
                                 f"{'reversed' if rev else 'normal'} border")
                         got = device_launches(
                             dec.launches, lambda: dec._refine_edges_cuda(
-                                gg, cc, v_ex, *rows, n_alpha, rev), 1, what)
+                                gg, cc, v_ex, *lr, n_alpha, rev), 1, what)
                         want = dec.refine_edges_plain(gg, cc, v_ex, *lr,
                                                       n_alpha, rev)
                         e = refine_err(what, got, want)
@@ -1387,19 +1385,17 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
         """The kernel, its plain version and the bound on the captured
         corners of a batch's first b rows and nq slots, at n_alpha."""
         at, lens_at, n_alpha, b, nq = case
-        g, c, v, intr, dist = refine_inputs[at]
+        g, c, v, lens = refine_inputs[at]
         g = g[:b]
         c, v = c[:b, :nq].contiguous(), v[:b, :nq].contiguous()
-        lr = (None, None) if lens_at == "dist 0" else (
-            tuple(x[:b] for x in intr), dist[:b])
-        rows = dec.lens_rows(*lr, b, dev)
+        lr = (None, None) if lens_at == "dist 0" else tuple(
+            x[:b] for x in lens)
+        pixels, ops = refine_work(g, c, v, n_alpha, lr[0] is not None)
         return dict(
-            kernel=lambda: dec._refine_edges_cuda(g, c, v, *rows, n_alpha),
+            kernel=lambda: dec._refine_edges_cuda(g, c, v, *lr, n_alpha),
             plain=lambda: dec.refine_edges_plain(g, c, v, *lr, n_alpha),
-            inputs=[c, v, *(x for x in rows if x is not None),
-                    refine_pixels(g, c, n_alpha)],
-            ops=refine_ops(c.shape[0] * c.shape[1], n_alpha,
-                           lr[0] is not None))
+            inputs=[c, v, *(x for x in lr if x is not None), pixels],
+            ops=ops)
 
     # the path's tier (the longest bench edge at 1920x1080 needs 64
     # samples), then the 128-sample grid and one slot alone
@@ -1421,13 +1417,18 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     # the plain version enqueues 250-1,300 launches, which can fill the
     # launch queue, so its device time is the profiler's sum of its kernels
     for e in [row] + row["also"]:
-        _, dev_ms, n, _ = device_busy_share(p2(refine_rows[e["at"]])["plain"],
-                                            calls=1)
+        work = p2(refine_rows[e["at"]])
+        _, dev_ms, n, _ = device_busy_share(work["plain"], calls=1)
         e["plain_profiled_ms"], e["plain_launches"] = dev_ms, n
+        e["ops"] = work["ops"]
     print(f"  refine_edges: one slot alone (its 128 threads' dependent "
           f"chains) {row['also'][-1]['ms']:.4f} ms device against the launch "
           f"floor's {floor['device_ms']:.4f}; {REFINE_TERM_OPS} f32 "
-          f"operations a term, {REFINE_UNDISTORT_OPS} more undistorting it")
+          f"operations a term of weight > 0, {REFINE_UNDISTORT_OPS} more "
+          "undistorting it")
+    for e in [row] + row["also"]:
+        print(f"  refine_edges at {e['at']}: {e['ops']:,} f32 operations "
+              "needed")
     for r in results:
         for e in [r] + r["also"]:
             print(f"  {r['name']} at {e['at']}: kernel {e['ms']:.4f} ms "
@@ -1532,17 +1533,32 @@ def refine_err(what: str, got, want) -> float:
     return err
 
 
-def refine_pixels(g, c, n_alpha: int):
-    """A stand-in input of one byte per distinct in-frame pixel that P2's
-    samples of corners `c` read: the bytes the kernel must read of `g`."""
+def refine_work(g, c, v, n_alpha: int, have_dist: bool) -> tuple:
+    """What refine_edges needs on gray `g`, corners `c` and quad_valid `v`
+    at n_alpha: a stand-in input of one byte per distinct in-frame pixel
+    that its live samples (s < ns) read, and its f32 operations."""
     import torch
     from ros_vision_tpu_torch.ops import decode as dec
     b, h, w = g.shape
     terms = dec.refine_terms_plain(g.to(torch.float32), c, n_alpha)
+    pb = torch.roll(c, -1, dims=2)
+    nx = pb[..., 1] - c[..., 1]
+    ny = -pb[..., 0] + c[..., 0]
+    ns = torch.floor(dec.mathf.sqrt(nx * nx + ny * ny) / 8.0).clamp(
+        16, n_alpha)                        # NaN for a non-finite edge
+    live = torch.arange(n_alpha, device=g.device) < ns[..., None]
     idx, ok = dec._int_index(terms["ux"], terms["uy"], h, w)
     flat = idx.to(torch.int64) + h * w * torch.arange(
         b, device=g.device).view(b, 1, 1, 1, 1)
-    return torch.empty(int(flat[ok].unique().numel()), dtype=torch.uint8)
+    pixels = torch.empty(int(flat[ok & live[..., None]].unique().numel()),
+                         dtype=torch.uint8)
+    corners = 4 * int((v & torch.isfinite(c).flatten(2).all(-1)).sum())
+    ops = (int(torch.isfinite(ns).sum()) * REFINE_EDGE_OPS
+           + int(live.sum()) * REFINE_SAMPLE_OPS
+           + int((terms["wgt"] > 0).sum())
+           * (REFINE_TERM_OPS + have_dist * REFINE_UNDISTORT_OPS)
+           + corners * (REFINE_CORNER_OPS + have_dist * REFINE_DISTORT_OPS))
+    return pixels, ops
 
 
 def capture_refine_args(dev, frames) -> tuple:

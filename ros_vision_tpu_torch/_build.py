@@ -70,9 +70,9 @@ _SIGNATURES = {
     "rvt_segment_min_max": [_P] * 5 + [_I] * 10,
     # h, fx, fy, cx, cy, r, t, err, launches, b, nq, tag_size, n_steps
     "rvt_estimate_poses": [_P] * 9 + [_I, _I, _F, _I],
-    # gray, corners, quad_valid, intr, dist, out, launches, b, nq, h, w,
-    # n_alpha, have_dist, reversed_border
-    "rvt_refine_edges": [_P] * 7 + [_I] * 7,
+    # gray, corners, quad_valid, intr, dist, out, launches, intr_stride,
+    # dist_stride, b, nq, h, w, n_alpha, have_dist, reversed_border
+    "rvt_refine_edges": [_P] * 7 + [_I] * 9,
 }
 
 

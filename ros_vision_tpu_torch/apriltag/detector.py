@@ -246,8 +246,7 @@ class TorchDetector:
             c = corners
             if cfg.refine_edges:
                 c = dec.refine_edges(
-                    gray, c, qvalid,
-                    (fxs, fys, cxs, cys) if use_dist else None,
+                    gray, c, qvalid, intr[:, :4] if use_dist else None,
                     dist if use_dist else None,
                     reversed_border=self.family.reversed_border,
                     syncs=syncs)

@@ -37,8 +37,9 @@ __global__ void __launch_bounds__(kRefineThreads)
                         const bool* __restrict__ quad_valid,
                         const float* __restrict__ intr,
                         const float* __restrict__ dist,
-                        float* __restrict__ out, int nq, int h, int w,
-                        int n_alpha, int have_dist, int reversed) {
+                        float* __restrict__ out, int intr_stride,
+                        int dist_stride, int nq, int h, int w, int n_alpha,
+                        int have_dist, int reversed) {
   __shared__ float warp_sums[kEdges][kWarpsPerEdge][6];
   __shared__ rvt_refine::Line lines[kEdges];
   const int slot = blockIdx.x;
@@ -47,10 +48,11 @@ __global__ void __launch_bounds__(kRefineThreads)
   const int t = threadIdx.x % rvt_refine::kEdgeThreads;
   const float* c = corners + (size_t)slot * 8;
   rvt_refine::Lens lens = {};
-  if (have_dist)
-    lens = {intr[b * 4 + 0], intr[b * 4 + 1], intr[b * 4 + 2],
-            intr[b * 4 + 3], dist[b * 5 + 0], dist[b * 5 + 1],
-            dist[b * 5 + 2], dist[b * 5 + 3], dist[b * 5 + 4]};
+  if (have_dist) {
+    const float* r = intr + (size_t)b * intr_stride;
+    const float* d = dist + (size_t)b * dist_stride;
+    lens = {r[0], r[1], r[2], r[3], d[0], d[1], d[2], d[3], d[4]};
+  }
   const int next = (edge + 1) & 3;
   const rvt_refine::Edge e = rvt_refine::make_edge(
       c[2 * edge], c[2 * edge + 1], c[2 * next], c[2 * next + 1], n_alpha);
@@ -93,13 +95,15 @@ __global__ void __launch_bounds__(kRefineThreads)
 }  // namespace
 
 // gray (B, H, W) u8; corners, out (B, NQ, 4, 2) f32; quad_valid (B, NQ)
-// bool; intr (B, 4) [fx, fy, cx, cy] and dist (B, 5) f32, read only when
-// have_dist. *launches receives the number of kernel launches made.
-// Returns a cudaError_t.
+// bool; intr (B, 4) [fx, fy, cx, cy] and dist (B, 5) f32 rows, intr_stride
+// and dist_stride floats apart (so a (B, 9) intrinsics row serves both),
+// read only when have_dist. *launches receives the number of kernel
+// launches made. Returns a cudaError_t.
 extern "C" int rvt_refine_edges(const uint8_t* gray, const float* corners,
                                 const bool* quad_valid, const float* intr,
                                 const float* dist, float* out, int* launches,
-                                int b, int nq, int h, int w, int n_alpha,
+                                int intr_stride, int dist_stride, int b,
+                                int nq, int h, int w, int n_alpha,
                                 int have_dist, int reversed_border,
                                 int device, cudaStream_t stream) {
   *launches = 0;
@@ -107,13 +111,14 @@ extern "C" int rvt_refine_edges(const uint8_t* gray, const float* corners,
   if (b < 0 || nq < 0 || h < 1 || w < 1 || n_alpha < 1 ||
       (long long)b * nq * 8 > INT_MAX || (long long)h * w > INT_MAX ||
       (long long)n_alpha * rvt_refine::kNormalSteps > INT_MAX ||
-      (have_dist && (intr == nullptr || dist == nullptr)))
+      (have_dist && (intr == nullptr || dist == nullptr ||
+                     intr_stride < 0 || dist_stride < 0)))
     return (int)cudaErrorInvalidValue;
   const int slots = b * nq;
   if (slots == 0) return 0;
   refine_edges_kernel<<<slots, kRefineThreads, 0, stream>>>(
-      gray, corners, quad_valid, intr, dist, out, nq, h, w, n_alpha,
-      have_dist, reversed_border);
+      gray, corners, quad_valid, intr, dist, out, intr_stride, dist_stride,
+      nq, h, w, n_alpha, have_dist, reversed_border);
   const cudaError_t rc = cudaGetLastError();
   *launches = rc == cudaSuccess;
   return (int)rc;

@@ -11,9 +11,10 @@
 // intrinsics on the card, which nvcc never contracts into an FMA). So every
 // sample position and pixel index, every weight and every undistorted point
 // has the plain version's bits. The six moment sums are the one place where
-// the order is the kernel's own (edge_sums below); torch's order for its
-// sum over two axes is not specified. atan2, sin and cos are evaluated in
-// f64 and rounded to f32, as ops/mathf.py does it.
+// the order is the kernel's own (thread_sums below, then refine.cu's
+// shuffle tree); torch's order for its sum over two axes is not specified.
+// atan2, sin and cos are evaluated in f64 and rounded to f32, as
+// ops/mathf.py does it.
 //
 // Pixel sampling is _int_sample's: truncate toward zero, in bounds when
 // px >= 0, py >= 0, trunc(px) < w and trunc(py) < h. For px >= 0 that last
@@ -259,28 +260,6 @@ RVT_REFINE_FN void corner(const Line& li, const Line& lj, bool quad_valid,
   if (have_dist) distort(lens, px, py, &px, &py);
   out[0] = good ? px : in[0];
   out[1] = good ? py : in[1];
-}
-
-// The kernel's order of an edge's six sums, written out for the host: the
-// kEdgeThreads threads' sums, a shuffle-down tree in each warp (offsets
-// 16, 8, 4, 2, 1), then the warps' totals added in warp order.
-inline void edge_sums(const Edge& e, const uint8_t* gray, int h, int w,
-                      int n_alpha, const Lens& lens, bool have_dist,
-                      bool reversed, float m[6]) {
-  float part[kEdgeThreads][6];
-  for (int t = 0; t < kEdgeThreads; ++t)
-    thread_sums(e, gray, h, w, n_alpha, lens, have_dist, reversed, t,
-                part[t]);
-  for (int base = 0; base < kEdgeThreads; base += 32)
-    for (int off = 16; off > 0; off >>= 1)
-      for (int l = 0; l < off; ++l)
-        for (int q = 0; q < 6; ++q)
-          part[base + l][q] = add(part[base + l][q], part[base + l + off][q]);
-  for (int q = 0; q < 6; ++q) {
-    m[q] = part[0][q];
-    for (int base = 32; base < kEdgeThreads; base += 32)
-      m[q] = add(m[q], part[base][q]);
-  }
 }
 
 }  // namespace rvt_refine

@@ -112,11 +112,14 @@ def _int_sample(gray_f: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
 
 
 def _bc_intr(intr, dist, ndim):
-    """Broadcast per-row intrinsics (B,) and distortion (B, 5) against
-    sample arrays with `ndim` dims (leading batch axis)."""
+    """Broadcast per-row intrinsics (a tuple of (B,) or the columns of a
+    (B, 4)) and distortion (B, 5) against sample arrays with `ndim` dims
+    (leading batch axis)."""
     def bc(v):
         return v.reshape(v.shape[:1] + (1,) * (ndim - 1))
 
+    if isinstance(intr, torch.Tensor):
+        intr = intr.unbind(1)
     fx, fy, cx, cy = (bc(v) for v in intr)
     ks = [bc(dist[:, i]) for i in range(5)]
     return fx, fy, cx, cy, ks
@@ -165,23 +168,24 @@ def refine_edges(gray: torch.Tensor, corners: torch.Tensor,
                  quad_valid: torch.Tensor, intr=None, dist=None,
                  reversed_border: bool = False, syncs=None) -> torch.Tensor:
     """Subpixel edge refinement of corners (B, NQ, 4, 2) full-res.
-    intr: (fx, fy, cx, cy) tuple of (B,) tensors and dist (B, 5) to refine
-    in undistorted coordinates; None to skip undistortion. P2 on CUDA,
-    the plain version on the CPU."""
+    intr: (fx, fy, cx, cy), a tuple of (B,) tensors or a (B, 4) tensor
+    (such as a (B, 9) intrinsics row's first four columns), and dist (B, 5)
+    to refine in undistorted coordinates; None to skip undistortion. P2 on
+    CUDA, the plain version on the CPU."""
     n_alpha = REFINE_ALPHA_TIERS[refine_tier(corners, quad_valid, syncs)]
     if kernel_route(corners) == "cpu":
         return refine_edges_plain(gray, corners, quad_valid, intr, dist,
                                   n_alpha, reversed_border)
+    if not (isinstance(intr, torch.Tensor) and dist is not None):
+        intr, dist = lens_rows(intr, dist, corners.shape[0], corners.device)
     return _refine_edges_cuda(
         gray.contiguous(), corners.to(torch.float32).contiguous(),
-        quad_valid.contiguous(), *lens_rows(intr, dist, corners.shape[0],
-                                            corners.device),
-        n_alpha, reversed_border)
+        quad_valid.contiguous(), intr, dist, n_alpha, reversed_border)
 
 
 def lens_rows(intr, dist, b: int, device: torch.device):
-    """refine_edges' (fx, fy, cx, cy) and dist as P2's contiguous f32 (B, 4)
-    and (B, 5) rows; (None, None) without calibration."""
+    """A tuple (fx, fy, cx, cy) and dist as P2's contiguous f32 (B, 4) and
+    (B, 5) rows; (None, None) without calibration."""
     if intr is None or dist is None:
         return None, None
     f32 = torch.float32
@@ -195,8 +199,9 @@ def _refine_edges_cuda(gray: torch.Tensor, corners: torch.Tensor,
                        quad_valid: torch.Tensor, intr, dist, n_alpha: int,
                        reversed_border: bool = False) -> torch.Tensor:
     """Launch csrc/refine.cu on CUDA gray (B, H, W) u8, corners (B, NQ, 4,
-    2) f32, quad_valid (B, NQ) bool and lens_rows' intr (B, 4) and dist
-    (B, 5), or None for both: one block a slot, one launch a call."""
+    2) f32, quad_valid (B, NQ) bool and f32 intr (B, 4) and dist (B, 5)
+    rows with adjacent columns (a (B, 9) row's views serve), or None for
+    both: one block a slot, one launch a call."""
     b, nq = corners.shape[:2]
     h, w = gray.shape[1:]
     dev = corners.device
@@ -206,18 +211,33 @@ def _refine_edges_cuda(gray: torch.Tensor, corners: torch.Tensor,
     _build.check_tensor(quad_valid, "quad_valid", torch.bool, (b, nq), dev)
     have_dist = intr is not None
     if have_dist:
-        _build.check_tensor(intr, "intr", torch.float32, (b, 4), dev)
-        _build.check_tensor(dist, "dist", torch.float32, (b, 5), dev)
+        _check_rows(intr, "intr", (b, 4), dev)
+        _check_rows(dist, "dist", (b, 5), dev)
     out = torch.empty_like(corners)
     if b * nq == 0:
         return out                          # no slot to write
     made = ctypes.c_int(0)
     _build.launch("rvt_refine_edges", dev, gray, corners, quad_valid, intr,
                   dist, out, ctypes.addressof(made),
+                  intr.stride(0) if have_dist else 0,
+                  dist.stride(0) if have_dist else 0,
                   b, nq, h, w, int(n_alpha), int(have_dist),
                   int(reversed_border))
     launches.add(made.value)
     return out
+
+
+def _check_rows(t: torch.Tensor, name: str, shape: tuple,
+                device: torch.device) -> None:
+    """Raise unless `t` is an f32 tensor of `shape` on `device` whose
+    columns are adjacent: P2 reads its rows `t.stride(0)` floats apart."""
+    if t.device != device or t.dtype != torch.float32 or \
+            tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected f32 {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(1) != 1 or not 0 <= t.stride(0) < 2 ** 31:
+        raise ValueError(f"{name}: expected adjacent columns, got strides "
+                         f"{t.stride()}")
 
 
 def refine_terms_plain(gray_f: torch.Tensor, corners: torch.Tensor,

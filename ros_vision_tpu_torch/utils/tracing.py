@@ -48,7 +48,7 @@ def _stages(det):
     def intrinsics(gray):
         rows = torch.as_tensor(det.default_intrinsics(gray.shape[0]),
                                device=gray.device)
-        return tuple(rows[:, i] for i in range(4)), rows[:, 4:9]
+        return rows[:, :4], rows[:, 4:9]
 
     def s_threshold(gray, st):
         decim, t = adaptive_threshold_fused(gray)
@@ -94,7 +94,7 @@ def _stages(det):
                                 fam, cm)
 
     def s_pose(gray, st):
-        (fx, fy, cx, cy), _ = intrinsics(gray)
+        fx, fy, cx, cy = intrinsics(gray)[0].unbind(1)
         r, t, e = poseops.estimate_poses(st["H"], cfg.tag_size, fx, fy,
                                          cx, cy)
         return {"pose_R": r, "pose_t": t, "pose_err": e}

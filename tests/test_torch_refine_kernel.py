@@ -94,6 +94,15 @@ def _torch_lens(intr, dist):
     return tuple(t(intr[:, i]) for i in range(4)), t(dist)
 
 
+def _jax(case, n_alpha, reversed_border):
+    g, c, v, intr, dist = case
+    jlens = (None, None) if intr is None else (
+        tuple(jnp.asarray(intr[:, i]) for i in range(4)), jnp.asarray(dist))
+    return np.asarray(jdec._refine_edges_core(
+        jnp.asarray(g), jnp.asarray(c), jnp.asarray(v), *jlens, n_alpha,
+        reversed_border))
+
+
 def _plain(case, n_alpha, reversed_border):
     g, c, v, intr, dist = case
     return tdec.refine_edges_plain(t(g), t(c), t(v), *_torch_lens(intr, dist),
@@ -154,12 +163,39 @@ def test_cuda_route_launches_or_raises(monkeypatch, lens):
     (name, args), = calls
     assert name == "rvt_refine_edges"
     b, nq = c.shape[:2]
-    assert args[7:] == (b, nq, H, W, 32, int(intr is not None), 0)
+    strides = (0, 0) if intr is None else (4, 5)
+    assert args[7:] == (*strides, b, nq, H, W, 32, int(intr is not None), 0)
     if intr is None:
         assert args[3] is None and args[4] is None
     else:
         np.testing.assert_array_equal(n(args[3]), intr)
         np.testing.assert_array_equal(n(args[4]), dist)
+
+
+def test_cuda_route_takes_an_intrinsics_row_as_it_is(monkeypatch):
+    """The detector's (B, 9) intrinsics row reaches P2's launcher as its
+    own two views, rows 9 floats apart: nothing is copied or stacked. The
+    plain version reads the same views as the tuple of columns."""
+    g, c, v, intr, dist = _case("bench", "LENS_DIST", False)
+    row = t(np.concatenate([intr, dist], 1))
+    calls = []
+
+    def refused(name, device, *args):
+        calls.append(args)
+        raise RuntimeError(f"{name}: CUDA launch failed with error 1")
+
+    monkeypatch.setattr(tdec, "kernel_route", lambda x: "cuda")
+    monkeypatch.setattr(_build, "launch", refused)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tdec.refine_edges(t(g), t(c), t(v), row[:, :4], row[:, 4:9])
+    (args,) = calls
+    assert args[3].data_ptr() == row.data_ptr()
+    assert args[4].data_ptr() == row[:, 4:].data_ptr()
+    assert args[7:9] == (9, 9)
+    got = tdec.refine_edges_plain(t(g), t(c), t(v), row[:, :4], row[:, 4:9],
+                                  32)
+    want = _plain(_case("bench", "LENS_DIST", False), 32, False)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -168,6 +204,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                 (t(g), t(c).double(), t(v)), (t(g)[:1], t(c), t(v))):
         with pytest.raises(ValueError):
             tdec._refine_edges_cuda(*bad, None, None, 32)
+    b = c.shape[0]
+    row = torch.zeros((b, 9))
+    for intr, dist in ((row[:, :4].double(), row[:, 4:9]),
+                       (row[:, :4], row[:1, 4:9]),
+                       (torch.zeros((9, b)).t()[:, :4], row[:, 4:9])):
+        with pytest.raises(ValueError):
+            tdec._refine_edges_cuda(t(g), t(c), t(v), intr, dist, 32)
 
 
 def test_lens_rows():
@@ -182,17 +225,18 @@ def test_lens_rows():
 
 def test_launcher_declared():
     """_build binds rvt_refine_edges with the signature csrc/refine.cu
-    defines extern "C": 7 pointers, b, nq, h, w, n_alpha, have_dist,
-    reversed_border, then device and stream."""
+    defines extern "C": 7 pointers, intr_stride, dist_stride, b, nq, h, w,
+    n_alpha, have_dist, reversed_border, then device and stream."""
     args = _build._SIGNATURES["rvt_refine_edges"]
-    assert args == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    assert args == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
     src = (_build.CSRC / "refine.cu").read_text()
     m = re.search(r'extern "C" int rvt_refine_edges\(([^)]*)\)', src)
     assert m is not None
     params = [p.strip() for p in m.group(1).split(",")]
     assert len(params) == len(args) + 2
-    assert [p.split()[-1] for p in params[7:14]] == [
-        "b", "nq", "h", "w", "n_alpha", "have_dist", "reversed_border"]
+    assert [p.split()[-1] for p in params[7:16]] == [
+        "intr_stride", "dist_stride", "b", "nq", "h", "w", "n_alpha",
+        "have_dist", "reversed_border"]
     assert params[-2:] == ["int device", "cudaStream_t stream"]
 
 
@@ -200,12 +244,8 @@ def test_launcher_declared():
 def test_plain_vs_jax(scene, n_alpha, lens, rb):
     case = _case(scene, lens, rb)
     g, c, v, intr, dist = case
-    jlens = (None, None) if intr is None else (
-        tuple(jnp.asarray(intr[:, i]) for i in range(4)), jnp.asarray(dist))
-    want = jdec._refine_edges_core(jnp.asarray(g), jnp.asarray(c),
-                                   jnp.asarray(v), *jlens, n_alpha, rb)
     got = _plain(case, n_alpha, rb)
-    _assert_corners(n(got), np.asarray(want), "plain vs JAX")
+    _assert_corners(n(got), _jax(case, n_alpha, rb), "plain vs JAX")
     # refine moved the valid tags' corners; the zero, NaN and invalid
     # slots keep theirs
     moved = np.abs(n(got) - c).max(axis=(2, 3))[:, :-2]
@@ -240,6 +280,28 @@ static Lens lens_of(const float* intr, const float* dist, int b, int have) {
          dist[b * 5], dist[b * 5 + 1], dist[b * 5 + 2], dist[b * 5 + 3],
          dist[b * 5 + 4]};
   return l;
+}
+
+// refine.cu's order of an edge's six sums: the kEdgeThreads threads' sums,
+// a shuffle-down tree in each warp (offsets 16, 8, 4, 2, 1), then the
+// warps' totals added in warp order.
+static void edge_sums(const Edge& e, const uint8_t* gray, int h, int w,
+                      int n_alpha, const Lens& lens, bool have_dist,
+                      bool reversed, float m[6]) {
+  float part[kEdgeThreads][6];
+  for (int t = 0; t < kEdgeThreads; ++t)
+    thread_sums(e, gray, h, w, n_alpha, lens, have_dist, reversed, t,
+                part[t]);
+  for (int base = 0; base < kEdgeThreads; base += 32)
+    for (int off = 16; off > 0; off >>= 1)
+      for (int l = 0; l < off; ++l)
+        for (int q = 0; q < 6; ++q)
+          part[base + l][q] = add(part[base + l][q], part[base + l + off][q]);
+  for (int q = 0; q < 6; ++q) {
+    m[q] = part[0][q];
+    for (int base = 32; base < kEdgeThreads; base += 32)
+      m[q] = add(m[q], part[base][q]);
+  }
 }
 
 extern "C" void host_refine_edges(const uint8_t* gray, const float* corners,
@@ -437,10 +499,13 @@ def test_kernel_terms_on_random_quads(host_refine, lens, n_alpha):
 @pytest.mark.parametrize("scene,n_alpha,lens,rb", GRID, ids=map(_id, GRID))
 def test_kernel_corners_on_host(host_refine, scene, n_alpha, lens, rb):
     """The kernel's corners, its own order of the moment sums included,
-    within LIMIT_PX of the plain version, non-finite in the same places."""
+    within LIMIT_PX of the plain version and of the JAX function,
+    non-finite in the same places."""
     case = _case(scene, lens, rb)
     got = host_refine[0](case, n_alpha, rb)
     err = _assert_corners(got, n(_plain(case, n_alpha, rb)),
                           "host kernel vs plain")
+    err_jax = _assert_corners(got, _jax(case, n_alpha, rb),
+                              "host kernel vs JAX")
     print(f"{_id((scene, n_alpha, lens, rb))}: {err:.3e} px from the plain "
-          "version")
+          f"version, {err_jax:.3e} from the JAX function")
