@@ -66,7 +66,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
      NaN slots), one device launch a call, 10 repeats bit-identical,
      within pose_limits of its plain version on the card (not bit-exact:
      f32 sums in other orders), timed also on one slot (its dependent
-     chain), its plain version's device time from the profiler; P2
+     chain, beside the chain counted from the code: POSE_CHAIN), its
+     plain version's device time from the profiler; P2
      (refine_edges, not a Pallas kernel: the JAX function's
      _refine_edges_core with its lax.fori_loop undistortion) on the
      corners one TorchDetector call hands refine_edges on each bench
@@ -77,8 +78,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
      device launch a call, 10 repeats bit-identical, corners within
      REFINE_LIMIT_PX (1e-3 px) of its plain version on the card and
      non-finite in the same places (the order of its moment sums is its
-     own), timed at the path's shapes with and without distortion, at the
-     128-sample tier and on one slot, its plain version's device time
+     own), timed at the path's shapes with and without distortion, with
+     a NaN slot a row beside the path's own corners, at the 128-sample
+     tier and on one slot, its plain version's device time
      from the profiler. Before the kernel rows, the launch floor: device
      and call time of torch.cuda._sleep(0), one launch of a kernel that
      does nothing;
@@ -257,6 +259,19 @@ POSE_POLAR_OPS = 29 + 8 * 59 + 14
 POSE_STEP_OPS = 330 + POSE_POLAR_OPS
 POSE_OPS = (72 + 163 + 54 + POSE_POLAR_OPS + 160
             + 2 * (50 * POSE_STEP_OPS + 168))
+# the dependent chain of one orthogonal-iteration step of P1's lane form
+# (csrc/pose.cuh), counted from the code: the operations in a row, each
+# waiting on the one before. Shuffle rounds: the data columns, their
+# norms, one a Newton step, the polar factor for its sign. f32
+# operations: the rotated corner 3, the translation 1 + 12 + 3, the
+# projection 4, a data column 8, the cross 2, a norm 3, the geometric mean
+# 1, the scaled column 1, the polar start 8, a Newton step 7 (the cross
+# 2, the det 3, add, mul), the sign 6. Divisions: the mean q, the scale,
+# the polar start 2, one a Newton step; square roots: a norm, the
+# geometric mean, the polar start. A slot runs 2 x 50 steps in a row.
+POSE_CHAIN = dict(shuffle_rounds=2 + 8 + 1, f32_ops=3 + 16 + 4 + 8 + 2 + 3
+                  + 1 + 1 + 8 + 8 * 7 + 6, divisions=4 + 8, square_roots=3,
+                  steps=2 * 50)
 # f32 operations that refine_edges needs (refine_work counts them on a
 # call's data), each computed once, a division, square root, floor or f64
 # atan2/cos/sin counted as one, compares and selects not, the camera's
@@ -662,6 +677,15 @@ def device_ms(fn, est_ms: float, reps: int = REPS) -> float | None:
                 return a.elapsed_time(b) / n
             sleep_ms *= 4.0
     return None
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now (MHz; run it right after the card
+    was busy: it reads the idle clock otherwise)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
 
 
 def both_ms(fn) -> dict:
@@ -1323,9 +1347,24 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
     for e in [row] + row["also"]:
         _, dev_ms, n, _ = device_busy_share(p1(e["at"])["plain"], calls=1)
         e["plain_profiled_ms"], e["plain_launches"] = dev_ms, n
-    print(f"  estimate_poses: one slot alone (one thread, its dependent "
-          f"chain) {row['also'][-1]['ms']:.4f} ms device; "
-          f"{POSE_OPS} f32 operations a slot")
+    chain_ms = row["also"][-1]["ms"] - floor["device_ms"]
+    mhz = sm_clock_mhz()
+    row["chain"] = dict(POSE_CHAIN, one_slot_ms=row["also"][-1]["ms"],
+                        floor_ms=floor["device_ms"], chain_ms=chain_ms,
+                        sm_clock_mhz=mhz, cycles=chain_ms * mhz * 1e3,
+                        cycles_a_step=chain_ms * mhz * 1e3
+                        / POSE_CHAIN["steps"])
+    print(f"  estimate_poses: one slot alone (one warp, its dependent "
+          f"chain) {row['also'][-1]['ms']:.4f} ms device; {POSE_OPS} f32 "
+          "operations a slot; the chain counted from the code, a step: "
+          f"{POSE_CHAIN['shuffle_rounds']} shuffle rounds, "
+          f"{POSE_CHAIN['f32_ops']} f32 operations, "
+          f"{POSE_CHAIN['divisions']} divisions, "
+          f"{POSE_CHAIN['square_roots']} square roots in a row, "
+          f"{POSE_CHAIN['steps']} steps; one slot less the launch floor "
+          f"{chain_ms:.4f} ms = {row['chain']['cycles']:,.0f} cycles at "
+          f"{mhz:.0f} MHz (nvidia-smi clocks.sm), "
+          f"{row['chain']['cycles_a_step']:,.0f} a step")
 
     # P2 on the corners one TorchDetector call hands refine_edges on each
     # bench batch (B=4, the 8-slot tier) and the same moved by a seeded
@@ -1383,11 +1422,14 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
 
     def p2(case):
         """The kernel, its plain version and the bound on the captured
-        corners of a batch's first b rows and nq slots, at n_alpha."""
-        at, lens_at, n_alpha, b, nq = case
+        corners of a batch's first b rows and nq slots, at n_alpha; with
+        nan, the last slot of each row NaN."""
+        at, lens_at, n_alpha, b, nq, *nan = case
         g, c, v, lens = refine_inputs[at]
         g = g[:b]
-        c, v = c[:b, :nq].contiguous(), v[:b, :nq].contiguous()
+        c, v = c[:b, :nq].clone(), v[:b, :nq].contiguous()
+        if nan:
+            c[:, -1] = float("nan")
         lr = (None, None) if lens_at == "dist 0" else tuple(
             x[:b] for x in lens)
         pixels, ops = refine_work(g, c, v, n_alpha, lr[0] is not None)
@@ -1398,13 +1440,17 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
             ops=ops)
 
     # the path's tier (the longest bench edge at 1920x1080 needs 64
-    # samples), then the 128-sample grid and one slot alone
+    # samples), then the same with a NaN slot a row, the 128-sample grid
+    # and one slot alone
     refine_rows = {f"{at}, {lens_at}, 8-slot tier, {n} samples": (
         at, lens_at, n, 4, 8) for at, lens_at, n in [
             (at, lens_at, path_tier[at]) for at in refine_inputs
             for lens_at in ("dist 0", "LENS_DIST")]
         + [("1280x800 B=4", "LENS_DIST", 128)]}
     one = path_tier["1280x800 B=4"]
+    refine_rows[f"1280x800 B=4, LENS_DIST, 8-slot tier with a NaN slot a "
+                f"row, {one} samples"] = ("1280x800 B=4", "LENS_DIST", one,
+                                          4, 8, True)
     refine_rows[f"1280x800, LENS_DIST, one slot, {one} samples"] = (
         "1280x800 B=4", "LENS_DIST", one, 1, 1)
     main_row, *other_rows = refine_rows
@@ -1421,8 +1467,8 @@ def kernel_phase(dev, bench4, clutter, bench4_1080, clutter_1080):
         _, dev_ms, n, _ = device_busy_share(work["plain"], calls=1)
         e["plain_profiled_ms"], e["plain_launches"] = dev_ms, n
         e["ops"] = work["ops"]
-    print(f"  refine_edges: one slot alone (its 128 threads' dependent "
-          f"chains) {row['also'][-1]['ms']:.4f} ms device against the launch "
+    print(f"  refine_edges: one slot alone (4 blocks, a thread a term) "
+          f"{row['also'][-1]['ms']:.4f} ms device against the launch "
           f"floor's {floor['device_ms']:.4f}; {REFINE_TERM_OPS} f32 "
           f"operations a term of weight > 0, {REFINE_UNDISTORT_OPS} more "
           "undistorting it")

@@ -12,7 +12,7 @@
 // sample position and pixel index, every weight and every undistorted point
 // has the plain version's bits. The six moment sums are the one place where
 // the order is the kernel's own (thread_sums below, then refine.cu's
-// shuffle tree); torch's order for its sum over two axes is not specified.
+// block tree); torch's order for its sum over two axes is not specified.
 // atan2, sin and cos are evaluated in f64 and rounded to f32, as
 // ops/mathf.py does it.
 //
@@ -44,7 +44,7 @@ constexpr int kNormalSteps = 25;  // decode.py REFINE_NORMAL_STEPS
 constexpr int kGrangeSteps = 8;   // grange 1.0 in quarter-pixel steps
 constexpr int kUnionSteps = kNormalSteps + kGrangeSteps;  // 33
 constexpr int kUndistortIters = 25;
-constexpr int kEdgeThreads = 128;  // threads that share one edge's sums
+constexpr int kMaxEdgeThreads = 1024;  // an edge's block at most
 
 // One camera: intrinsics and (k1, k2, p1, p2, k3).
 struct Lens {
@@ -67,13 +67,20 @@ RVT_REFINE_FN float square_term(float p, float r2, float v) {
   return mul(p, add(r2, mul(mul(2.0f, v), v)));
 }
 
-// decode.py _undistort: 25 fixed-point steps in normalised coordinates.
+// decode.py _undistort: 25 fixed-point steps in normalised coordinates,
+// unrolled by 5 on the card. A NaN point stays NaN through every step
+// (each takes both coordinates), so it is returned at once: its divisions
+// would take their slow path.
 RVT_REFINE_FN void undistort(const Lens& l, float px, float py, float* ox,
                              float* oy) {
+  if (px != px || py != py) {
+    *ox = *oy = NAN;
+    return;
+  }
   const float x0 = dvd(sub(px, l.cx), l.fx);
   const float y0 = dvd(sub(py, l.cy), l.fy);
   float x = x0, y = y0;
-#pragma unroll 1
+#pragma unroll 5
   for (int it = 0; it < kUndistortIters; ++it) {
     const float r2 = add(mul(x, x), mul(y, y));
     const float rad = radial(l, r2);
@@ -199,20 +206,47 @@ RVT_REFINE_FN void add_moments(const Edge& e, const Term& t, float m[6]) {
   m[5] = add(m[5], t.wgt);
 }
 
-// Thread t of an edge's kEdgeThreads sums the terms i = s * 25 + k with
-// i = t (mod kEdgeThreads), i ascending, every term of the n_alpha-sample
-// grid (masked ones add w = 0 times the point, so a non-finite point
-// poisons the sums as in the plain version).
+// The terms of an edge's n_alpha-sample grid, term i = s * 25 + k.
+RVT_REFINE_FN int edge_terms(int n_alpha) { return n_alpha * kNormalSteps; }
+
+// The threads of an edge's block: one a term, in whole warps, at least
+// two (refine.cu fits the line on both) and at most kMaxEdgeThreads (800
+// at 32 samples; 1,024 at 64 and 128, so a thread takes at most 2 and 4
+// terms there).
+RVT_REFINE_FN int edge_threads(int n_alpha) {
+  const int warps = (edge_terms(n_alpha) + 31) / 32;
+  return warps < 2 ? 64
+                   : warps < kMaxEdgeThreads / 32 ? warps * 32
+                                                   : kMaxEdgeThreads;
+}
+
+// Thread t of `threads` takes the terms i = t + r * threads, r in
+// [0, thread_terms), i ascending.
+RVT_REFINE_FN int thread_terms(int n_alpha, int t, int threads) {
+  const int n = edge_terms(n_alpha);
+  return t < n ? (n - t + threads - 1) / threads : 0;
+}
+
+RVT_REFINE_FN int term_index(int t, int r, int threads) {
+  return t + r * threads;
+}
+
+// Thread t's sums of its terms (see thread_terms): every term of the
+// grid, masked ones too (they add w = 0 times the point, so a non-finite
+// point poisons the sums as in the plain version).
 RVT_REFINE_FN void thread_sums(const Edge& e, const uint8_t* gray, int h,
                                int w, int n_alpha, const Lens& lens,
                                bool have_dist, bool reversed, int t,
-                               float m[6]) {
+                               int threads, float m[6]) {
   for (int q = 0; q < 6; ++q) m[q] = 0.0f;
+  const int n = thread_terms(n_alpha, t, threads);
 #pragma unroll 1
-  for (int i = t; i < n_alpha * kNormalSteps; i += kEdgeThreads)
+  for (int r = 0; r < n; ++r) {
+    const int i = term_index(t, r, threads);
     add_moments(e, edge_term(e, gray, h, w, i / kNormalSteps,
                              i % kNormalSteps, lens, have_dist, reversed),
                 m);
+  }
 }
 
 // The fitted line of an edge: its centroid and direction, and whether any
@@ -222,22 +256,29 @@ struct Line {
   bool usable;
 };
 
+// The moments' divisor: their weight, or 1 where it is not above 1e-9
+// (the line is then unusable).
+RVT_REFINE_FN float moment_divisor(const float m[6]) {
+  return m[5] > 1e-9f ? m[5] : 1.0f;
+}
+
+// The line's angle from the moments over their divisor, d[q] = m[q] / n:
+// the covariance's principal direction.
+RVT_REFINE_FN float line_angle(const float d[5]) {
+  const float mx = d[0], my = d[1];
+  const float cxx = sub(d[2], mul(mx, mx));
+  const float cxy = sub(d[3], mul(mx, my));
+  const float cyy = sub(d[4], mul(my, my));
+  return mul(0.5f, atan2_f64(mul(-2.0f, cxy), sub(cyy, cxx)));
+}
+
 RVT_REFINE_FN Line fit_line(const Edge& e, const float m[6]) {
-  const float n_tot = m[5];
-  Line l;
-  l.usable = n_tot > 1e-9f;
-  const float n_safe = l.usable ? n_tot : 1.0f;
-  const float mx = dvd(m[0], n_safe);
-  const float my = dvd(m[1], n_safe);
-  l.ex = add(mx, e.emx);
-  l.ey = add(my, e.emy);
-  const float cxx = sub(dvd(m[2], n_safe), mul(mx, mx));
-  const float cxy = sub(dvd(m[3], n_safe), mul(mx, my));
-  const float cyy = sub(dvd(m[4], n_safe), mul(my, my));
-  const float theta = mul(0.5f, atan2_f64(mul(-2.0f, cxy), sub(cyy, cxx)));
-  l.lnx = cos_f64(theta);
-  l.lny = sin_f64(theta);
-  return l;
+  const float n_safe = moment_divisor(m);
+  float d[5];
+  for (int q = 0; q < 5; ++q) d[q] = dvd(m[q], n_safe);
+  const float theta = line_angle(d);
+  return {add(d[0], e.emx), add(d[1], e.emy), cos_f64(theta),
+          sin_f64(theta), m[5] > 1e-9f};
 }
 
 // Corner j = (i + 1) & 3 where the lines of edges i and j meet (distorted

@@ -201,7 +201,8 @@ def _refine_edges_cuda(gray: torch.Tensor, corners: torch.Tensor,
     """Launch csrc/refine.cu on CUDA gray (B, H, W) u8, corners (B, NQ, 4,
     2) f32, quad_valid (B, NQ) bool and f32 intr (B, 4) and dist (B, 5)
     rows with adjacent columns (a (B, 9) row's views serve), or None for
-    both: one block a slot, one launch a call."""
+    both: one cooperative launch a call, a block an edge at a time, a
+    thread a term."""
     b, nq = corners.shape[:2]
     h, w = gray.shape[1:]
     dev = corners.device
@@ -216,9 +217,10 @@ def _refine_edges_cuda(gray: torch.Tensor, corners: torch.Tensor,
     out = torch.empty_like(corners)
     if b * nq == 0:
         return out                          # no slot to write
+    lines = torch.empty((b, nq, 4, 5), dtype=torch.float32, device=dev)
     made = ctypes.c_int(0)
     _build.launch("rvt_refine_edges", dev, gray, corners, quad_valid, intr,
-                  dist, out, ctypes.addressof(made),
+                  dist, out, lines, ctypes.addressof(made),
                   intr.stride(0) if have_dist else 0,
                   dist.stride(0) if have_dist else 0,
                   b, nq, h, w, int(n_alpha), int(have_dist),

@@ -11,10 +11,11 @@ into the tag. Detection corners p[0..3] <-> tag corners
 
 estimate_poses dispatches by device: a CPU tensor runs
 estimate_poses_plain, whose loops the host drives op by op; a CUDA tensor
-launches P1, csrc/pose.cu, once a call: one thread a slot runs both
-orthogonal iterations in registers, the counterpart of the JAX function's
-lax.fori_loops. The two agree to f32 rounding, not bit for bit: torch's
-order for its multi-axis sums is its own.
+launches P1, csrc/pose.cu, once a call: a warp a slot runs both
+orthogonal iterations, its Newton polar steps spread over the lanes, the
+counterpart of the JAX function's lax.fori_loops. The two agree to f32
+rounding, not bit for bit: torch's order for its multi-axis sums is its
+own.
 """
 from __future__ import annotations
 
@@ -190,7 +191,7 @@ def estimate_poses_plain(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
 def _estimate_poses_cuda(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
                          cy, n_steps: int = 50):
     """Launch csrc/pose.cu on a CUDA (B, NQ, 3, 3) f32 tensor and (B,) f32
-    intrinsics: one thread a slot, one launch a call."""
+    intrinsics: a warp a slot, one launch a call."""
     b, nq = Hdet.shape[:2]
     dev = Hdet.device
     _build.check_tensor(Hdet, "Hdet", torch.float32, (b, nq, 3, 3), dev)

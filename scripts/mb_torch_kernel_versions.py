@@ -25,15 +25,29 @@ bench batch and four spiral planes, flat indices, 448 sweeps), which
 scripts/mb_torch_flood_phases.py takes too (flood_inputs); K10's and
 K11's inputs at chip_smoke.py's shapes (K11 also random, and K4 on K11's
 sorted ids), which scripts/mb_torch_gather_phases.py takes too
-(gather_inputs). Then each
+(gather_inputs); P1's and P2's inputs (pose_inputs, refine_inputs):
+chip_smoke.py's pose cases (the homographies one TorchDetector call hands
+estimate_poses on each bench batch, the 8-slot tier, the same padded to
+128 slots, seeded_homographies(4, 128) and one slot) and the corners one
+call hands refine_edges on each bench batch at the path's tier, with and
+without LENS_DIST, with a NaN slot a row, at 128 samples and one slot.
+Then each
 ROOT, in the order given
 (so "OLD . . OLD" takes them in turns), runs in a process of its own that
 imports that root's package, builds its kernels, checks every call
-bit-exact against the root's plain version and times it with
+bit-exact against the root's plain version (P1 within chip_smoke.
+pose_limits, P2 within chip_smoke.REFINE_LIMIT_PX) and times it with
 chip_smoke.both_ms: device_ms (calls queued behind a torch.cuda._sleep)
-and call_ms (one call between CUDA events, the enqueue included). Prints
-one JSON line per root and input, then the card's name and power limit;
+and call_ms (one call between CUDA events, the enqueue included), and
+saves P1's and P2's outputs. Prints one JSON line per root and input, then
+whether P1's outputs are bit-identical across the roots and P2's largest
+corner difference across them, then the card's name and power limit;
 exits nonzero without a card or if a root's kernel disagrees.
+
+    python3 scripts/mb_torch_kernel_versions.py --only pose,refine ROOT ...
+
+takes only the named groups of inputs (hist, sort, ccl, threshold,
+boundary, flood, gather, pose, refine).
 """
 from __future__ import annotations
 
@@ -45,6 +59,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 INPUTS = ROOT / "build" / "mb_torch_kernel_versions" / "inputs.pt"
+GROUPS = ("hist", "sort", "ccl", "threshold", "boundary", "flood", "gather",
+          "pose", "refine")
 SIZES = {"1280x800": 32768, "1920x1080": 131072}   # cluster_and_fit width
 
 
@@ -59,8 +75,8 @@ def timing_helpers():
     return mod
 
 
-def capture() -> None:
-    """Save the K4 and K9 inputs of one cluster_and_fit call per size."""
+def capture(only: tuple = GROUPS) -> None:
+    """Save the inputs of the groups `only` names."""
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -72,7 +88,8 @@ def capture() -> None:
     dev = require_cuda()
     saved = {"hist": {}, "sort": {}, "ccl": {}, "threshold": {},
              "boundary": {}, "flood": {}}
-    for label, k in SIZES.items():
+    for label, k in (SIZES if set(only) & {
+            "hist", "sort", "ccl", "threshold", "boundary"} else {}).items():
         w, h, noise = ((cs.W, cs.H, 1.0) if k == 32768
                        else (cs.W2, cs.H2, cs.NOISE_1080))
         g = torch.from_numpy(np.stack([cs.bench_scene(seed, w, h, noise)[0]
@@ -100,12 +117,103 @@ def capture() -> None:
         saved["hist"][f"{at} (peak segments)"] = calls["hists"][1].cpu()
         saved["sort"][at] = [([o.cpu() for o in ops], nk)
                              for ops, nk in calls["sorts"]]
-    saved["flood"] = {f"{kernel} {at}": (kernel, x)
-                      for kernel, xs in flood_inputs(cs, dev).items()
-                      for at, x in xs.items()}
-    saved["gather"] = gather_inputs(cs, dev)
+    if "flood" in only:
+        saved["flood"] = {f"{kernel} {at}": (kernel, x)
+                          for kernel, xs in flood_inputs(cs, dev).items()
+                          for at, x in xs.items()}
+    if "gather" in only:
+        saved["gather"] = gather_inputs(cs, dev)
+    if "pose" in only:
+        saved["pose"] = pose_inputs(cs, dev)
+    if "refine" in only:
+        saved["refine"] = refine_inputs(cs, dev)
+    saved = {g: saved.get(g, {}) if g in only else {} for g in GROUPS}
     INPUTS.parent.mkdir(parents=True, exist_ok=True)
     torch.save(saved, INPUTS)
+
+
+def bench_batches(cs) -> dict:
+    """chip_smoke.py's bench batches at B = 4, both sizes (numpy)."""
+    import numpy as np
+    return {"1280x800 B=4": np.stack([cs.bench_scene(s)[0]
+                                      for s in range(4)]),
+            "1920x1080 B=4": np.stack([cs.bench_scene(
+                s, cs.W2, cs.H2, cs.NOISE_1080)[0] for s in range(4)])}
+
+
+def pose_inputs(cs, dev) -> dict:
+    """P1's inputs as chip_smoke.py's kernel phase takes them: {at: (H,
+    tag_size, [fx, fy, cx, cy])} on the CPU."""
+    import torch
+    out = {}
+    for at, frames in bench_batches(cs).items():
+        h, tag_size, *intr = cs.capture_pose_args(dev, frames)
+        intr = [v.cpu() for v in intr]
+        out[f"{at}, 8-slot tier"] = (h.cpu(), tag_size, intr)
+        out[f"{at}, padded to 128 slots"] = (torch.nn.functional.pad(
+            h, (0, 0, 0, 0, 0, 128 - h.shape[1])).cpu(), tag_size, intr)
+    seeded = cs.seeded_homographies(4, 128)
+    out["seeded 4x128"] = (torch.from_numpy(seeded["H"]), tag_size,
+                           [torch.from_numpy(seeded[k])
+                            for k in ("fx", "fy", "cx", "cy")])
+    h, tag_size, intr = out["1280x800 B=4, 8-slot tier"]
+    out["one slot"] = (h[:1, :1].contiguous(), tag_size,
+                       [v[:1] for v in intr])
+    return out
+
+
+def refine_inputs(cs, dev) -> dict:
+    """P2's inputs as chip_smoke.py's kernel phase times them: {at: (gray,
+    corners, quad_valid, (B, 9) intrinsics row or None, n_alpha)} on the
+    CPU: the corners one TorchDetector call hands refine_edges on each
+    bench batch at its tier, without and with LENS_DIST (the lens centred
+    on the frame), the same with the last slot of each row NaN, 128
+    samples, and one slot."""
+    import torch
+    from ros_vision_tpu_torch.ops import decode as dec
+    out = {}
+    for at, frames in bench_batches(cs).items():
+        g, c, v, _ = cs.capture_refine_args(dev, frames)
+        b = c.shape[0]
+        row = torch.tensor([[*cs.lens_for(g.shape[2], g.shape[1]).values(),
+                             *cs.LENS_DIST]] * b, dtype=torch.float32)
+        tier = dec.REFINE_ALPHA_TIERS[dec.refine_tier(c, v)]
+        nan = c.clone()
+        nan[:, -1] = float("nan")
+        g, c, v, nan = g.cpu(), c.cpu(), v.cpu(), nan.cpu()
+        for lens_at, lens in (("dist 0", None), ("LENS_DIST", row)):
+            out[f"{at}, {lens_at}, 8-slot tier, {tier} samples"] = (
+                g, c, v, lens, tier)
+            out[f"{at}, {lens_at}, 8-slot tier with a NaN slot a row, "
+                f"{tier} samples"] = (g, nan, v, lens, tier)
+        if at.startswith("1280x800"):
+            out[f"{at}, LENS_DIST, 8-slot tier, 128 samples"] = (
+                g, c, v, row, 128)
+            out[f"1280x800, LENS_DIST, one slot, {tier} samples"] = (
+                g[:1], c[:1, :1].contiguous(), v[:1, :1].contiguous(),
+                row[:1], tier)
+    return out
+
+
+def pose_call(xs):
+    """(P1 call, its outputs, the plain version's candidates) on saved
+    inputs on the card."""
+    from ros_vision_tpu_torch.ops import pose
+    h, tag_size, intr = xs
+    return (lambda: pose.estimate_poses(h, tag_size, *intr),
+            pose.estimate_poses(h, tag_size, *intr),
+            pose.pose_candidates_plain(h, tag_size, *intr))
+
+
+def refine_call(xs):
+    """(P2 call, its corners, the plain version's) on saved inputs on the
+    card."""
+    from ros_vision_tpu_torch.ops import decode as dec
+    g, c, v, row, n_alpha = xs
+    lens = (None, None) if row is None else (row[:, :4], row[:, 4:9])
+    return (lambda: dec._refine_edges_cuda(g, c, v, *lens, n_alpha),
+            dec._refine_edges_cuda(g, c, v, *lens, n_alpha),
+            dec.refine_edges_plain(g, c, v, *lens, n_alpha))
 
 
 def flood_inputs(cs, dev) -> dict:
@@ -250,8 +358,9 @@ def flood_calls(kernel: str, x):
             (ck.propagate(x, flat, 448),), (ccl.propagate(x, flat, 448),))
 
 
-def time_root(root: Path) -> None:
-    """Check and time root's kernels on the saved inputs."""
+def time_root(root: Path, out_path: Path) -> None:
+    """Check and time root's kernels on the saved inputs; save P1's and
+    P2's outputs to out_path."""
     sys.path.insert(0, str(root))
     import torch
     import ros_vision_tpu_torch
@@ -311,29 +420,81 @@ def time_root(root: Path) -> None:
         run, got, want = gather_calls(kernel, [x.to(dev) for x in xs])
         cs.max_abs_err(f"{root}: {kernel} at {at}", got, want)
         rows.append((kernel, at, cs.both_ms(run)))
+    outputs = {"pose": {}, "refine": {}}
+    for at, xs in saved["pose"].items():
+        h, tag_size, intr = xs
+        run, got, cands = pose_call((h.to(dev), tag_size,
+                                     [v.to(dev) for v in intr]))
+        cs.pose_agreement(f"{root}: estimate_poses at {at}", got, cands,
+                          tag_size)
+        outputs["pose"][at] = [x.cpu() for x in got]
+        rows.append(("estimate_poses", at, cs.both_ms(run)))
+    for at, xs in saved["refine"].items():
+        run, got, want = refine_call([None if x is None else x.to(dev)
+                                      if isinstance(x, torch.Tensor) else x
+                                      for x in xs])
+        cs.refine_err(f"{root}: refine_edges at {at}", got, want)
+        outputs["refine"][at] = got.cpu()
+        rows.append(("refine_edges", at, cs.both_ms(run)))
     for kernel, at, t in rows:
         print(json.dumps(dict(root=str(root), kernel=kernel, at=at, **t)))
+    torch.save(outputs, out_path)
+
+
+def compare_outputs(paths: list) -> None:
+    """Print whether P1's outputs are bit-identical across the roots and
+    P2's largest corner difference across them, input by input."""
+    import torch
+    runs = [torch.load(p) for p in paths]
+    for at in runs[0]["pose"]:
+        bits = [[x.contiguous().view(torch.int32) for x in r["pose"][at]]
+                for r in runs]
+        same = all(torch.equal(a, b) for other in bits[1:]
+                   for a, b in zip(bits[0], other))
+        print(json.dumps(dict(kernel="estimate_poses", at=at,
+                              bit_identical_across_roots=same)))
+    for at in runs[0]["refine"]:
+        first = runs[0]["refine"][at]
+        fin = torch.isfinite(first)
+        worst, same_places = 0.0, True
+        for r in runs[1:]:
+            other = r["refine"][at]
+            same_places &= torch.equal(torch.isfinite(other), fin)
+            if fin.any():
+                worst = max(worst, float((other[fin] - first[fin]).abs()
+                                         .max()))
+        print(json.dumps(dict(kernel="refine_edges", at=at,
+                              max_corner_diff_across_roots_px=worst,
+                              non_finite_in_the_same_places=same_places)))
 
 
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--capture"]:
-        capture()
+        capture(tuple(argv[1].split(",")))
         return 0
     if argv[:1] == ["--time"]:
-        time_root(Path(argv[1]))
+        time_root(Path(argv[1]), Path(argv[2]))
         return 0
+    only = GROUPS
+    if argv[:1] == ["--only"]:
+        only, argv = tuple(argv[1].split(",")), argv[2:]
+        if not set(only) <= set(GROUPS):
+            print(f"--only takes groups of {GROUPS}", file=sys.stderr)
+            return 2
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     me = [sys.executable, str(Path(__file__).resolve())]
-    subprocess.run(me + ["--capture"], check=True)
-    for root in argv:
-        run = subprocess.run(me + ["--time", root], capture_output=True,
-                             text=True)
+    subprocess.run(me + ["--capture", ",".join(only)], check=True)
+    outs = [INPUTS.parent / f"outputs_{i}.pt" for i in range(len(argv))]
+    for root, out in zip(argv, outs):
+        run = subprocess.run(me + ["--time", root, str(out)],
+                             capture_output=True, text=True)
         sys.stdout.write(run.stdout)
         if run.returncode != 0:
             sys.stderr.write(run.stderr)
             return run.returncode
+    compare_outputs(outs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -4,7 +4,8 @@ the JAX function, and the kernel's slot arithmetic built for the host.
 The card runs the kernel; here a CPU tensor takes estimate_poses_plain, so
 the kernel's own arithmetic (csrc/pose.cuh, which also compiles as plain
 C++) is built with the host's C++ compiler and held against the plain
-version and the JAX function. Inputs: chip_smoke.seeded_homographies,
+version and the JAX function, and its lane form, run lane by lane, against
+its serial form bit for bit. Inputs: chip_smoke.seeded_homographies,
 tags 0.5-6 m out at tilts up to 70 degrees, the planar ambiguity, an
 all-zero and a NaN slot a row. Limits: chip_smoke.pose_limits, which add
 to t 1e-4 m, R 1e-3 and err 1e-3 relative the f32 rounding of the depth
@@ -139,43 +140,104 @@ def _host_compiler():
     return shutil.which("c++") or shutil.which("g++")
 
 
+HOST_GLUE = r'''
+#include "pose.cuh"
+using namespace rvt_pose;
+
+// pose.cuh's exchange run serially: a lane quantity is an array of the
+// slot's lanes, filled by running each lane's role in turn
+struct HostQ {
+  float v[kSlotLanes];
+};
+struct HostLanes {
+  using Q = HostQ;
+  float at(const HostQ& q, int k) const { return q.v[k]; }
+  float own(const HostQ& q, int k) const { return q.v[k]; }
+  void mark(int) const {}
+  template <class F>
+  HostQ each(int n, F f) const {
+    HostQ q;
+    for (int k = 0; k < kSlotLanes; ++k) q.v[k] = f(k < n ? k : n - 1);
+    return q;
+  }
+};
+
+extern "C" void host_estimate_poses(const float* h, const float* fx,
+    const float* fy, const float* cx, const float* cy, float* r, float* t,
+    float* err, int b, int nq, float tag_size, int n_steps, int lanes) {
+  for (int i = 0; i < b * nq; ++i) {
+    const int bi = i / nq;
+    if (!lanes) {
+      estimate_slot(h + 9 * i, fx[bi], fy[bi], cx[bi], cy[bi], tag_size,
+                    n_steps, r + 9 * i, t + 3 * i, err + i);
+      continue;
+    }
+    if (!estimate_slot_lanes(HostLanes(), h + 9 * i, fx[bi], fy[bi],
+                             cx[bi], cy[bi], tag_size, n_steps, r + 9 * i,
+                             t + 3 * i, err + i)) {  // pose.cu's NaN slot
+      for (int k = 0; k < 9; ++k) r[9 * i + k] = NAN;
+      for (int k = 0; k < 3; ++k) t[3 * i + k] = NAN;
+      err[i] = NAN;
+    }
+  }
+}
+'''
+
+
 @pytest.fixture(scope="module")
 def host_pose(tmp_path_factory):
-    """csrc/pose.cuh's estimate_slot built for the host (IEEE f32, no
-    contraction into FMAs, as the kernel's __f*_rn operations round)."""
+    """csrc/pose.cuh built for the host (IEEE f32, no contraction into
+    FMAs, as the kernel's __f*_rn operations round): estimate_slot, the
+    serial reference, or with lanes=True estimate_slot_lanes, the kernel's
+    lane form, its lanes run one after another."""
     cxx = _host_compiler()
     if cxx is None:
         pytest.skip("no host C++ compiler")
     out = tmp_path_factory.mktemp("host_pose")
     src = out / "host_pose.cpp"
-    src.write_text(
-        '#include "pose.cuh"\n'
-        'extern "C" void host_estimate_poses(const float* h, '
-        "const float* fx, const float* fy, const float* cx, "
-        "const float* cy, float* r, float* t, float* err, int b, int nq, "
-        "float tag_size, int n_steps) {\n"
-        "  for (int i = 0; i < b * nq; ++i)\n"
-        "    rvt_pose::estimate_slot(h + 9 * i, fx[i / nq], fy[i / nq], "
-        "cx[i / nq], cy[i / nq], tag_size, n_steps, r + 9 * i, t + 3 * i, "
-        "err + i);\n}\n")
+    src.write_text(HOST_GLUE)
     lib = out / "libhost_pose.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC",
                     "-shared", f"-I{_build.CSRC}", "-o", str(lib), str(src)],
                    check=True, capture_output=True)
     fn = ctypes.CDLL(str(lib)).host_estimate_poses
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_int]
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int]
 
-    def run(d: dict, n_steps: int = 50):
+    def run(d: dict, n_steps: int = 50, lanes: bool = False):
         ins = [np.ascontiguousarray(d[k], np.float32)
                for k in ("H",) + INTR]
         b, nq = ins[0].shape[:2]
         outs = [np.empty((b, nq, 3, 3), np.float32),
                 np.empty((b, nq, 3), np.float32),
                 np.empty((b, nq), np.float32)]
-        fn(*[a.ctypes.data for a in ins + outs], b, nq, TAG, n_steps)
+        fn(*[a.ctypes.data for a in ins + outs], b, nq, TAG, n_steps,
+           int(lanes))
         return outs
     return run
+
+
+@pytest.mark.parametrize("seed,b,nq,n_steps", [(0, 3, 16, 50),
+                                               (4, 4, 128, 50),
+                                               (5, 2, 8, 0), (5, 2, 8, 1)])
+def test_lane_form_on_host_gives_the_serial_bits(host_pose, seed, b, nq,
+                                                 n_steps):
+    """The kernel's lane form (a Newton step on 9 lanes, an orthogonal
+    step on 12, every sum in the serial order) run lane by lane gives
+    estimate_slot's bits in every slot, NaN in the same places; the batches
+    hold an all-zero and a NaN slot a row."""
+    d = _batch(seed, b, nq)
+    got = host_pose(d, n_steps, lanes=True)
+    want = host_pose(d, n_steps)
+    for g, w in zip(got, want):
+        nan = np.isnan(w)
+        np.testing.assert_array_equal(np.isnan(g), nan)
+        np.testing.assert_array_equal(g.view(np.int32)[~nan],
+                                      w.view(np.int32)[~nan])
+    assert np.isnan(want[2][:, -2:]).all()
+    if n_steps:
+        assert np.isfinite(want[2][:, :-2]).all()
 
 
 @pytest.mark.parametrize("seed,b,nq", [(0, 3, 16), (4, 4, 128)])

@@ -163,8 +163,9 @@ def test_cuda_route_launches_or_raises(monkeypatch, lens):
     (name, args), = calls
     assert name == "rvt_refine_edges"
     b, nq = c.shape[:2]
+    assert tuple(args[6].shape) == (b, nq, 4, 5)     # the lines' scratch
     strides = (0, 0) if intr is None else (4, 5)
-    assert args[7:] == (*strides, b, nq, H, W, 32, int(intr is not None), 0)
+    assert args[8:] == (*strides, b, nq, H, W, 32, int(intr is not None), 0)
     if intr is None:
         assert args[3] is None and args[4] is None
     else:
@@ -191,7 +192,7 @@ def test_cuda_route_takes_an_intrinsics_row_as_it_is(monkeypatch):
     (args,) = calls
     assert args[3].data_ptr() == row.data_ptr()
     assert args[4].data_ptr() == row[:, 4:].data_ptr()
-    assert args[7:9] == (9, 9)
+    assert args[8:10] == (9, 9)
     got = tdec.refine_edges_plain(t(g), t(c), t(v), row[:, :4], row[:, 4:9],
                                   32)
     want = _plain(_case("bench", "LENS_DIST", False), 32, False)
@@ -225,16 +226,17 @@ def test_lens_rows():
 
 def test_launcher_declared():
     """_build binds rvt_refine_edges with the signature csrc/refine.cu
-    defines extern "C": 7 pointers, intr_stride, dist_stride, b, nq, h, w,
+    defines extern "C": 8 pointers, intr_stride, dist_stride, b, nq, h, w,
     n_alpha, have_dist, reversed_border, then device and stream."""
     args = _build._SIGNATURES["rvt_refine_edges"]
-    assert args == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    assert args == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     src = (_build.CSRC / "refine.cu").read_text()
     m = re.search(r'extern "C" int rvt_refine_edges\(([^)]*)\)', src)
     assert m is not None
     params = [p.strip() for p in m.group(1).split(",")]
     assert len(params) == len(args) + 2
-    assert [p.split()[-1] for p in params[7:16]] == [
+    assert params[6] == "float* lines"
+    assert [p.split()[-1] for p in params[8:17]] == [
         "intr_stride", "dist_stride", "b", "nq", "h", "w", "n_alpha",
         "have_dist", "reversed_border"]
     assert params[-2:] == ["int device", "cudaStream_t stream"]
@@ -282,26 +284,47 @@ static Lens lens_of(const float* intr, const float* dist, int b, int have) {
   return l;
 }
 
-// refine.cu's order of an edge's six sums: the kEdgeThreads threads' sums,
-// a shuffle-down tree in each warp (offsets 16, 8, 4, 2, 1), then the
-// warps' totals added in warp order.
+// refine.cu's order of an edge's six sums: its block's edge_threads(n_alpha)
+// threads' sums, a shuffle-down tree in each warp (offsets 16, 8, 4, 2, 1),
+// then the same tree over the warps' totals in warp 0, zeros past the last
+// warp.
 static void edge_sums(const Edge& e, const uint8_t* gray, int h, int w,
                       int n_alpha, const Lens& lens, bool have_dist,
                       bool reversed, float m[6]) {
-  float part[kEdgeThreads][6];
-  for (int t = 0; t < kEdgeThreads; ++t)
+  const int threads = edge_threads(n_alpha);
+  static float part[kMaxEdgeThreads][6];
+  for (int t = 0; t < threads; ++t)
     thread_sums(e, gray, h, w, n_alpha, lens, have_dist, reversed, t,
-                part[t]);
-  for (int base = 0; base < kEdgeThreads; base += 32)
+                threads, part[t]);
+  float tot[32][6];
+  for (int l = 0; l < 32; ++l)
+    for (int q = 0; q < 6; ++q) tot[l][q] = 0.0f;
+  for (int base = 0; base < threads; base += 32) {
     for (int off = 16; off > 0; off >>= 1)
       for (int l = 0; l < off; ++l)
         for (int q = 0; q < 6; ++q)
           part[base + l][q] = add(part[base + l][q], part[base + l + off][q]);
-  for (int q = 0; q < 6; ++q) {
-    m[q] = part[0][q];
-    for (int base = 32; base < kEdgeThreads; base += 32)
-      m[q] = add(m[q], part[base][q]);
+    for (int q = 0; q < 6; ++q) tot[base / 32][q] = part[base][q];
   }
+  for (int off = 16; off > 0; off >>= 1)
+    for (int l = 0; l < off; ++l)
+      for (int q = 0; q < 6; ++q) tot[l][q] = add(tot[l][q], tot[l + off][q]);
+  for (int q = 0; q < 6; ++q) m[q] = tot[0][q];
+}
+
+// How often the threads of an edge's block visit each term of its grid.
+extern "C" int host_term_visits(int n_alpha, int* visits, int* most) {
+  const int threads = edge_threads(n_alpha);
+  *most = 0;
+  for (int t = 0; t < threads; ++t) {
+    const int n = thread_terms(n_alpha, t, threads);
+    *most = n > *most ? n : *most;
+    for (int r = 0; r < n; ++r) {
+      const int i = term_index(t, r, threads);
+      if (i >= 0 && i < edge_terms(n_alpha)) ++visits[i];
+    }
+  }
+  return threads;
 }
 
 extern "C" void host_refine_edges(const uint8_t* gray, const float* corners,
@@ -386,6 +409,7 @@ def host_refine(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     dll.host_refine_edges.argtypes = [P] * 6 + [I] * 7
     dll.host_refine_terms.argtypes = [P] * 4 + [I] * 7 + [P] * 7
+    dll.host_term_visits.argtypes = [I, P, P]
 
     def operands(case):
         g, c, v, intr, dist = case
@@ -421,7 +445,26 @@ def host_refine(tmp_path_factory):
                                   "yo")])
         return res
 
-    return corners, terms
+    def visits(n_alpha):
+        counts = np.zeros(n_alpha * 25, np.int32)
+        most = ctypes.c_int(0)
+        threads = dll.host_term_visits(n_alpha, counts.ctypes.data,
+                                       ctypes.addressof(most))
+        return threads, counts, most.value
+
+    return corners, terms, visits
+
+
+@pytest.mark.parametrize("n_alpha,threads,most", [(32, 800, 1),
+                                                   (64, 1024, 2),
+                                                   (128, 1024, 4)])
+def test_term_mapping_visits_every_term_once(host_refine, n_alpha, threads,
+                                             most):
+    """P2's block of an edge: a thread a term of the n_alpha x 25 grid in
+    whole warps, at most 1,024 threads; every term visited exactly once."""
+    got_threads, counts, got_most = host_refine[2](n_alpha)
+    assert (got_threads, got_most) == (threads, most)
+    np.testing.assert_array_equal(counts, 1)
 
 
 def _same_bits(got: np.ndarray, want: np.ndarray, what: str) -> None:
