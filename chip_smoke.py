@@ -163,8 +163,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
      times the train step both ways, in turns);
  11. tracing (utils/tracing.py): stage_taps(check=True) on the B=4 bench
      batches through exactly the path's kernels, the taps' ids and
-     hamming equal to detect_raw's and their corners within 0.1 px;
-     StageTimer's ms per stage (CUDA events) at B=1 and B=4, both sizes;
+     hamming equal to detect_raw's and their corners within 0.1 px; the
+     recorder's spans (host ms a detect_raw_packed call, 5 calls, no
+     synchronize between them) at B=1 and B=4, both sizes; one B=4 call's
+     synchronising operations as HostSyncs counts them (reads and table
+     uploads), as its call record holds them and as
+     torch.cuda.set_sync_debug_mode("warn") warns of them, all equal;
  12. mesh (parallel/mesh.py): detect_raw and detect_raw_packed of a
      detector sharded by TorchDetector.use_mesh over [cuda:0, cuda:0]
      on the 1280x800 B=4 batch; the ok mask in
@@ -3021,15 +3025,42 @@ def tap_detections(taps: dict) -> list:
     return rows
 
 
+def sync_count(det, g, intr) -> tuple:
+    """One detect_raw_packed call's synchronising operations three ways:
+    host_syncs' count, the call record's `syncs`, and the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+    from ros_vision_tpu_torch.utils.tracing import RECORDER
+    torch.cuda.synchronize()
+    before = det.host_syncs.count
+    since = time.time_ns()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            det.detect_raw_packed(g, intr)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = sum("called a synchronizing CUDA operation" in str(w.message)
+                 for w in caught)
+    return (det.host_syncs.count - before,
+            RECORDER.calls(since)[-1]["syncs"], warned)
+
+
 def tracing_phase(dev, batches: dict) -> tuple:
     """utils/tracing on the card: stage_taps(check=True) through the
     path's kernels, held against detect_raw on the same frames (ids and
-    hamming equal, corners within 0.1 px), and StageTimer's ms per stage
-    at B=1 and B=4."""
+    hamming equal, corners within 0.1 px); the recorder's spans, host ms
+    a detect_raw_packed call at B=1 and B=4; one B=4 call's synchronising
+    operations, host_syncs' count equal to the call record's and to
+    set_sync_debug_mode("warn")'s."""
     import torch
     from ros_vision_tpu_torch import _build
     from ros_vision_tpu_torch.apriltag.detector import TorchDetector
-    from ros_vision_tpu_torch.utils.tracing import StageTimer, stage_taps
+    from ros_vision_tpu_torch.utils.tracing import (RECORDER, span_ms,
+                                                    stage_taps)
 
     out, paths = {}, {}
     for (width, height), (frames, must) in batches.items():
@@ -3056,19 +3087,31 @@ def tracing_phase(dev, batches: dict) -> tuple:
                       f"hamming {ham} vs {d.hamming}")
                 worst = max(worst, float(np.abs(corners - d.corners).max()))
         check(worst < 0.1, f"{what}: corners {worst:.4f} px from detect")
-        timer = StageTimer(det)
         ms = {}
         for b in (1, 4):
-            ms[str(b)] = timer.measure(frames[:b], reps=5)
+            g = torch.as_tensor(frames[:b], device=dev)
+            intr = torch.as_tensor(det.default_intrinsics(b), device=dev)
+            det.detect_raw_packed(g, intr)
+            since = time.time_ns()
+            for _ in range(5):
+                det.detect_raw_packed(g, intr)
+            torch.cuda.synchronize()
+            ms[str(b)] = span_ms(RECORDER.calls(since))
+        syncs = sync_count(det, g, intr)
+        check(syncs[0] == syncs[1] == syncs[2],
+              f"{width}x{height} B=4 syncs: host_syncs {syncs[0]}, call "
+              f"record {syncs[1]}, sync debug mode {syncs[2]}")
         print(f"  {width}x{height} B=4: taps checked, ids and hamming == "
               f"detect_raw, corners within {worst:.5f} px; launches "
-              f"{ {k: v for k, v in counts.items() if v} }")
+              f"{ {k: v for k, v in counts.items() if v} }; synchronising "
+              f"operations a call: {syncs[0]} (host_syncs == call record "
+              f"== sync debug mode)")
         for b, times in ms.items():
-            print(f"  StageTimer {width}x{height} B={b} (ms a call, CUDA "
-                  f"events over 5 queued calls, {CARD}): "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
-                  + f"; total {sum(times.values()):.3f}")
-        out[f"{width}x{height}"] = dict(corner_err_px=worst, stage_ms=ms)
+            print(f"  spans {width}x{height} B={b} (host ms a call, 5 "
+                  f"detect_raw_packed calls, {CARD}): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        out[f"{width}x{height}"] = dict(corner_err_px=worst, stage_ms=ms,
+                                        syncs=syncs[0])
     return out, paths
 
 

@@ -16,8 +16,9 @@ bit-identical outputs.
 On a CUDA tensor the hand-written kernels run; on a CPU tensor their
 plain versions do. There is no other switch. PyTorch runs eagerly, so the
 JAX package's device-side lax.cond/lax.switch choices become host reads
-(counted in `host_syncs`); each branch computes exactly what the JAX
-branch computes.
+(counted in `host_syncs`, with the constant tables' uploads); each branch
+computes exactly what the JAX branch computes. Every call records its
+spans and synchronising operations in utils/tracing.RECORDER.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ros_vision_tpu_torch.ops import quadfit
 from ros_vision_tpu_torch.ops import threshold as thr
 from ros_vision_tpu_torch.ops.frontend_kernel import frontend
 from ros_vision_tpu_torch.ops.threshold_kernel import adaptive_threshold_fused
+from ros_vision_tpu_torch.utils.tracing import Call, Span
 
 # The JAX DetectorConfig fields that only choose between bit-identical TPU
 # implementations of the same stage; config_from_jax drops them.
@@ -135,12 +137,15 @@ def unpack_outputs(packed) -> dict:
 
 class PendingOutput:
     """A packed result on its way to the host: the pinned host tensor a
-    non-blocking D2H copy writes, and the event recorded after the copy.
-    TorchDetector.unpack waits on the event before it reads."""
+    non-blocking D2H copy writes, the event recorded after the copy, and
+    the host ns of the call that made it (its `detector` span, 0 if none
+    was recorded). TorchDetector.unpack waits on the event before it
+    reads."""
 
-    def __init__(self, host: torch.Tensor, event):
+    def __init__(self, host: torch.Tensor, event, detect_ns: int = 0):
         self.host = host
         self.event = event
+        self.detect_ns = detect_ns
 
     def wait(self) -> torch.Tensor:
         if self.event is not None:
@@ -209,18 +214,25 @@ class TorchDetector:
         return np.tile(row, (batch, 1))
 
     # ---- the device pipeline ---------------------------------------------
-    @torch.inference_mode()
     def _detect_device(self, gray: torch.Tensor, intr: torch.Tensor) -> dict:
-        """gray (B, H, W) uint8; intr (B, 9) per-camera rows."""
-        cfg = self.config
-        decim, threshim = adaptive_threshold_fused(gray)
-        pts, counts = frontend(threshim, cfg.max_points,
-                               self._qcfg.max_boundary_pixels)
-        return self._cluster_and_tail(gray, decim, pts, counts, intr)
+        """gray (B, H, W) uint8; intr (B, 9) per-camera rows. One call
+        record, the `detector` span."""
+        with Call(self.host_syncs):
+            return self._pipeline(gray, intr)
 
     def _detect_packed(self, gray: torch.Tensor,
                        intr: torch.Tensor) -> torch.Tensor:
-        return pack_outputs(self._detect_device(gray, intr))
+        with Call(self.host_syncs):
+            return pack_outputs(self._pipeline(gray, intr))
+
+    @torch.inference_mode()
+    def _pipeline(self, gray: torch.Tensor, intr: torch.Tensor) -> dict:
+        cfg = self.config
+        decim, threshim = adaptive_threshold_fused(gray)
+        pts, counts = frontend(threshim, cfg.max_points,
+                               self._qcfg.max_boundary_pixels,
+                               syncs=self.host_syncs)
+        return self._cluster_and_tail(gray, decim, pts, counts, intr)
 
     def _cluster_and_tail(self, gray, decim, pts, counts, intr):
         cfg = self.config
@@ -245,17 +257,19 @@ class TorchDetector:
         def tail(corners, qvalid):
             c = corners
             if cfg.refine_edges:
-                c = dec.refine_edges(
-                    gray, c, qvalid, intr[:, :4] if use_dist else None,
-                    dist if use_dist else None,
-                    reversed_border=self.family.reversed_border,
-                    syncs=syncs)
-            d = dec.decode_quads(gray, c, qvalid, self.family,
-                                 self._code_matrix)
+                with Span("decode.refine"):
+                    c = dec.refine_edges(
+                        gray, c, qvalid, intr[:, :4] if use_dist else None,
+                        dist if use_dist else None,
+                        reversed_border=self.family.reversed_border,
+                        syncs=syncs)
+            with Span("decode.tail"):
+                d = dec.decode_quads(gray, c, qvalid, self.family,
+                                     self._code_matrix, syncs=syncs)
             ok = d["ok"]
             H = d["H"]
-            tcs = torch.tensor([[-1, 1], [1, 1], [1, -1], [-1, -1]],
-                               dtype=torch.float32, device=gray.device)
+            tcs = syncs.upload([[-1, 1], [1, 1], [1, -1], [-1, -1]],
+                               gray.device, torch.float32)
             px, py = dec.project(H[..., None, :, :], tcs[:, 0], tcs[:, 1])
             det_corners = torch.stack([px, py], -1)         # (B, nq, 4, 2)
             cx0, cy0 = dec.project(H, 0.0, 0.0)
@@ -284,7 +298,7 @@ class TorchDetector:
                    "corners": det_corners, "centers": centers}
             if cfg.estimate_pose and cfg.fx:
                 R, t, err = poseops.estimate_poses(
-                    H, cfg.tag_size, fxs, fys, cxs, cys)
+                    H, cfg.tag_size, fxs, fys, cxs, cys, syncs=syncs)
                 out.update({"pose_R": R, "pose_t": t, "pose_err": err})
             return out
 
@@ -304,8 +318,9 @@ class TorchDetector:
         if cfg.refine_edges and cfg.screen_hamming is not None:
             # decode-gated refine: a loose decode of the unrefined corners
             # screens out quads that cannot become detections
-            pre = dec.decode_quads(gray, corners, qvalid, self.family,
-                                   self._code_matrix)
+            with Span("decode.screen"):
+                pre = dec.decode_quads(gray, corners, qvalid, self.family,
+                                       self._code_matrix, syncs=syncs)
             screen = qvalid & (pre["hamming"] <= cfg.screen_hamming)
             prio = torch.where(screen, pre["margin"], -torch.inf)
             # lax.top_k order: descending, ties to the lower index

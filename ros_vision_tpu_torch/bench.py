@@ -18,8 +18,9 @@ VisionSystem to an in-process NT4TestServer for BENCH_STREAM_S seconds
 (default 12; BENCH_STREAMING=0 skips it).
 
 Added keys: `backend` ("torch-cuda" or "torch-cpu"), `device` (the
-card's name and power limit from nvidia-smi) and `stage_ms`
-(utils/tracing.StageTimer at B=1 and B=4).
+card's name and power limit from nvidia-smi) and `stage_ms` (host ms a
+detect_raw call of each span utils/tracing.RECORDER records, at B=1 and
+B=4; no synchronize between calls).
 
 The record cannot be lost: every key is present from the start (null
 until its phase runs); a complete line prints as soon as the B=8 point
@@ -196,13 +197,22 @@ def sync_roundtrip_ms(det, img, iters: int) -> float:
 
 
 def stage_ms(det, img, reps: int) -> dict:
-    """StageTimer's ms per stage at B=1 and B=4."""
-    from ros_vision_tpu_torch.utils.tracing import StageTimer
+    """Host ms a call of each recorded span (utils/tracing.SPANS) over
+    `reps` detect_raw calls at B=1 and B=4, after one warm-up call."""
+    from ros_vision_tpu_torch.utils.tracing import RECORDER, span_ms
     out = {}
     for b in (1, 4):
-        times = StageTimer(det).measure(
-            np.broadcast_to(img, (b,) + img.shape).copy(), reps=reps)
-        out[str(b)] = {k: round(v, 4) for k, v in times.items()}
+        g = torch.from_numpy(np.broadcast_to(img, (b,) + img.shape).copy()) \
+            .to(det.device)
+        intr = torch.as_tensor(det.default_intrinsics(b), device=det.device)
+        det.detect_raw(g, intr)
+        since = time.time_ns()
+        for _ in range(reps):
+            det.detect_raw(g, intr)
+        if det.device.type == "cuda":
+            torch.cuda.synchronize(det.device)
+        out[str(b)] = {k: round(v, 4) for k, v in
+                       span_ms(RECORDER.calls(since)).items()}
         _log(f"stage ms B={b}: {out[str(b)]}")
     return out
 

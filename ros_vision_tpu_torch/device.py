@@ -1,7 +1,11 @@
 """Device helpers: explicit CUDA selection, host-read accounting."""
 from __future__ import annotations
 
+import time
+
 import torch
+
+from ros_vision_tpu_torch.utils import tracing
 
 
 def require_cuda(index: int = 0) -> torch.device:
@@ -24,12 +28,40 @@ def kernel_route(t: torch.Tensor) -> str:
 
 
 class HostSyncs:
-    """Counts device->host reads that steer control flow (the eager
-    counterparts of the JAX detector's lax.cond / lax.switch branches)."""
+    """Counts and times the synchronising operations of a detector call:
+    device->host reads that steer control flow (the eager counterparts of
+    the JAX detector's lax.cond / lax.switch branches) and uploads of
+    host-built tables (a blocking copy on a CUDA device). `count` is the
+    total; `ns` the host ns spent inside them while tracing.RECORDER is
+    on. A call record (tracing.Call) takes both as they grow over its
+    call, so a HostSyncs serves one thread at a time."""
 
     def __init__(self):
         self.count = 0
+        self.ns = 0
 
     def item(self, t: torch.Tensor):
         self.count += 1
-        return t.item()
+        if not tracing.RECORDER.enabled:
+            return t.item()
+        t0 = time.perf_counter_ns()
+        out = t.item()
+        self.ns += time.perf_counter_ns() - t0
+        return out
+
+    def upload(self, data, device, dtype=None) -> torch.Tensor:
+        """torch.as_tensor(data, dtype=dtype, device=device): a host
+        table (numpy array or Python sequence) on `device`, with the values
+        and dtype torch.tensor gives it."""
+        self.count += 1
+        if not tracing.RECORDER.enabled:
+            return torch.as_tensor(data, dtype=dtype, device=device)
+        t0 = time.perf_counter_ns()
+        out = torch.as_tensor(data, dtype=dtype, device=device)
+        self.ns += time.perf_counter_ns() - t0
+        return out
+
+
+def host_syncs(syncs: HostSyncs | None) -> HostSyncs:
+    """`syncs`, or a fresh HostSyncs for a caller that keeps no count."""
+    return HostSyncs() if syncs is None else syncs

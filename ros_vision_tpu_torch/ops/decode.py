@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.apriltag.families import TagFamily
-from ros_vision_tpu_torch.device import kernel_route
+from ros_vision_tpu_torch.device import host_syncs, kernel_route
 from ros_vision_tpu_torch.ops import mathf
 
 QUAD_DECIMATE = 2
@@ -366,9 +366,10 @@ def _src_basis_inv() -> np.ndarray:
 _SRC_BASIS_INV = _src_basis_inv()
 
 
-def quad_homographies(corners: torch.Tensor) -> torch.Tensor:
+def quad_homographies(corners: torch.Tensor, syncs=None) -> torch.Tensor:
     """Tag frame (-1,-1),(1,-1),(1,1),(-1,1) -> corners, (..., 4, 2) ->
-    (..., 3, 3) normalised to H[2,2] = 1 (projective-basis closed form)."""
+    (..., 3, 3) normalised to H[2,2] = 1 (projective-basis closed form).
+    `syncs` (device.HostSyncs) counts the basis table's upload."""
     u = corners[..., 0]
     v = corners[..., 1]
     p = torch.stack([u, v, torch.ones_like(u)], dim=-2)     # (..., 3, 4)
@@ -383,7 +384,7 @@ def quad_homographies(corners: torch.Tensor) -> torch.Tensor:
         torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)], -2)
     cvec = bmv3(adj, p4)
     G = m * cvec[..., None, :]
-    H = bmm3(G, torch.as_tensor(_SRC_BASIS_INV, device=corners.device))
+    H = bmm3(G, host_syncs(syncs).upload(_SRC_BASIS_INV, corners.device))
     h22 = H[..., 2:3, 2:3]
     h22 = torch.where(torch.abs(h22) < 1e-20,
                       torch.where(h22 < 0, -1e-20, 1e-20), h22)
@@ -457,17 +458,19 @@ def make_code_matrix(family: TagFamily) -> np.ndarray:
 
 def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
                  quad_valid: torch.Tensor, family: TagFamily,
-                 code_matrix: torch.Tensor) -> dict:
+                 code_matrix: torch.Tensor, syncs=None) -> dict:
     """Quad decode (apriltag quad_decode semantics): ok (B,NQ), tag_id,
-    hamming, rotation (int32), margin (f32), H (B,NQ,3,3)."""
+    hamming, rotation (int32), margin (f32), H (B,NQ,3,3). `syncs`
+    (device.HostSyncs) counts the sample tables' uploads."""
     b, nq = corners.shape[:2]
     dev = corners.device
+    syncs = host_syncs(syncs)
     gray_f = gray.to(torch.float32)
-    H = quad_homographies(corners)
+    H = quad_homographies(corners, syncs)
     (btx, bty, bwhite), (dtx, dty), grid_idx = _decode_tables(family)
-    btx = torch.as_tensor(btx, device=dev)
-    bty = torch.as_tensor(bty, device=dev)
-    bwhite = torch.as_tensor(bwhite, device=dev)
+    btx = syncs.upload(btx, dev)
+    bty = syncs.upload(bty, dev)
+    bwhite = syncs.upload(bwhite, dev)
 
     # border samples -> white/black gray models
     Hb = H[:, :, None, :, :]
@@ -508,8 +511,8 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
     ok_models = (cw[..., 2] - ck[..., 2]) >= 0
 
     # data bit samples
-    dtxj = torch.as_tensor(dtx, device=dev)
-    dtyj = torch.as_tensor(dty, device=dev)
+    dtxj = syncs.upload(dtx, dev)
+    dtyj = syncs.upload(dty, dev)
     bx = Hb[..., 0, 0] * dtxj + Hb[..., 0, 1] * dtyj + Hb[..., 0, 2]
     by = Hb[..., 1, 0] * dtxj + Hb[..., 1, 1] * dtyj + Hb[..., 1, 2]
     bz = Hb[..., 2, 0] * dtxj + Hb[..., 2, 1] * dtyj + Hb[..., 2, 2]
@@ -526,7 +529,7 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
                            device=dev)
         grid[:, :, 2:2 + g, 2:2 + g] = vals.reshape(b, nq, g, g)
     else:
-        gi = torch.as_tensor(grid_idx, dtype=torch.int64, device=dev)
+        gi = syncs.upload(grid_idx, dev, torch.int64)
         grid = torch.zeros((b, nq, total * total), dtype=torch.float32,
                            device=dev)
         grid[:, :, gi] = vals

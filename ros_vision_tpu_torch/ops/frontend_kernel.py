@@ -169,13 +169,14 @@ def boundary_compact_cuda(threshim: torch.Tensor, ranks: torch.Tensor,
 
 
 def boundary_compact(threshim: torch.Tensor, ranks: torch.Tensor,
-                     p_cap: int, k_cap: int):
+                     p_cap: int, k_cap: int, syncs=None):
     """(B, H, W) threshold + (B, H, W) int32 rank planes -> (key, pack2)
     (B, k_cap) point words and counts (B,). The stage-A pixel cap is
     boundary_block_rows(p_cap, W) whole rows, as in the JAX package."""
     if kernel_route(threshim) == "cpu":
         pts, counts = quadfit.boundary_points_capped(
-            threshim, ranks.reshape(ranks.shape[0], -1), p_cap, k_cap)
+            threshim, ranks.reshape(ranks.shape[0], -1), p_cap, k_cap,
+            syncs)
         return pts["key"], pts["pack2"], counts
     return boundary_compact_cuda(threshim.contiguous(), ranks.contiguous(),
                                  p_cap, k_cap)
@@ -193,13 +194,15 @@ def frontend_route(h: int, w: int) -> str:
 
 
 def frontend(threshim: torch.Tensor, max_points: int,
-             max_boundary_pixels: int):
+             max_boundary_pixels: int, syncs=None):
     """Threshold image -> ({key, pack2} (B, max_points), counts (B,)),
-    ranks from the CCL that frontend_route picks."""
+    ranks from the CCL that frontend_route picks. `syncs`
+    (device.HostSyncs) counts the plain version's table upload."""
     if frontend_route(*threshim.shape[1:]) == "flood":
         ranks = ccl.label_components_flood(threshim)[2].view(threshim.shape)
     else:
         ranks = rank_image(threshim)
     key, pack2, counts = boundary_compact(threshim, ranks,
-                                          max_boundary_pixels, max_points)
+                                          max_boundary_pixels, max_points,
+                                          syncs)
     return {"key": key, "pack2": pack2}, counts

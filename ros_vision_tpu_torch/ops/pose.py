@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from ros_vision_tpu_torch import _build
-from ros_vision_tpu_torch.device import kernel_route
+from ros_vision_tpu_torch.device import host_syncs, kernel_route
 from ros_vision_tpu_torch.ops import mathf
 from ros_vision_tpu_torch.ops.decode import bmm3, bmv3, project
 
@@ -140,17 +140,19 @@ def _axis_rotation(axis, ang):
 
 
 def pose_candidates_plain(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
-                          cy, n_steps: int = 50):
+                          cy, n_steps: int = 50, syncs=None):
     """estimate_poses_plain before its choice: the homography-seeded
     candidate (R1, t1, err1), the mirror-seeded one (R2, t2, err2) and
-    sin_a, the sine of the tag normal's angle to the sight line."""
+    sin_a, the sine of the tag normal's angle to the sight line. `syncs`
+    (device.HostSyncs) counts the two tables' uploads."""
     dev = Hdet.device
+    syncs = host_syncs(syncs)
     fx1, fy1, cx1, cy1 = (v.reshape(-1, 1) for v in (fx, fy, cx, cy))
     s = tag_size / 2.0
-    obj = torch.tensor([[-s, s, 0], [s, s, 0], [s, -s, 0], [-s, -s, 0]],
-                       dtype=torch.float32, device=dev)
-    tcs = torch.tensor([[-1, 1], [1, 1], [1, -1], [-1, -1]],
-                       dtype=torch.float32, device=dev)
+    obj = syncs.upload([[-s, s, 0], [s, s, 0], [s, -s, 0], [-s, -s, 0]],
+                       dev, torch.float32)
+    tcs = syncs.upload([[-1, 1], [1, 1], [1, -1], [-1, -1]], dev,
+                       torch.float32)
     px, py = project(Hdet[..., None, :, :], tcs[:, 0], tcs[:, 1])
     v = torch.stack([(px - cx1[..., None]) / fx1[..., None],
                      (py - cy1[..., None]) / fy1[..., None],
@@ -174,13 +176,13 @@ def pose_candidates_plain(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
 
 
 def estimate_poses_plain(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
-                         cy, n_steps: int = 50):
+                         cy, n_steps: int = 50, syncs=None):
     """Plain PyTorch version (any device): Hdet (B, NQ, 3, 3) canonical
     detection homographies; per-row intrinsics fx, fy, cx, cy (B,) ->
     (R (B,NQ,3,3), t (B,NQ,3), err (B,NQ)). Dense 3x3 algebra over all
     slots, its loops on the host (~14,000 launches a call on the card)."""
     (r1, t1, e1), (r2, t2, e2), sin_a = pose_candidates_plain(
-        Hdet, tag_size, fx, fy, cx, cy, n_steps)
+        Hdet, tag_size, fx, fy, cx, cy, n_steps, syncs)
     use2 = (e2 < e1) & (sin_a > 1e-8)
     r = torch.where(use2[..., None, None], r2, r1)
     t = torch.where(use2[..., None], t2, t1)
@@ -211,13 +213,14 @@ def _estimate_poses_cuda(Hdet: torch.Tensor, tag_size: float, fx, fy, cx,
 
 
 def estimate_poses(Hdet: torch.Tensor, tag_size: float, fx, fy, cx, cy,
-                   n_steps: int = 50):
+                   n_steps: int = 50, syncs=None):
     """Hdet (B, NQ, 3, 3) canonical detection homographies; per-row
     intrinsics fx, fy, cx, cy (B,) -> (R (B,NQ,3,3), t (B,NQ,3),
     err (B,NQ)) for every slot; kernel on CUDA, plain version on the
     CPU."""
     if kernel_route(Hdet) == "cpu":
-        return estimate_poses_plain(Hdet, tag_size, fx, fy, cx, cy, n_steps)
+        return estimate_poses_plain(Hdet, tag_size, fx, fy, cx, cy, n_steps,
+                                    syncs)
     b = Hdet.shape[0]
     intr = torch.stack([torch.as_tensor(v, dtype=torch.float32,
                                         device=Hdet.device).reshape(-1)

@@ -21,7 +21,8 @@ Frame staging on a CUDA detector:
   - submit: detection is enqueued and the packed (B, NQ, 36) output is
     copied D2H into pinned memory with a torch.cuda.Event recorded after
     the copy; the returned PendingOutput is waited on only by
-    TorchDetector.unpack.
+    TorchDetector.unpack, and carries the call's `detector` span, which
+    process_batch adds to the wait in the timing CSV's det_time_us.
 Pinned buffers come from PyTorch's caching host allocator, which does not
 hand a block out again until the copies recorded on it have finished.
 On a CPU detector the same calls run synchronously with no pinning.
@@ -43,6 +44,7 @@ from ros_vision_tpu_torch.msg.types import (TagDetectionArrayMsg,
                                             encode_apriltag_list_proto)
 from ros_vision_tpu_torch.runtime.publisher_queue import PublisherQueue
 from ros_vision_tpu_torch.runtime.timing import TimingLogger
+from ros_vision_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -130,13 +132,16 @@ class VisionNode:
         PendingOutput for process_batch(pending=...)."""
         out = self.detector.detect_raw_packed(
             frames, self._intrinsics_for_submit())
+        # the call's `detector` span (on this thread; a mesh records it on
+        # its workers, and then none is carried)
+        detect_ns = tracing.RECORDER.take_last_ns() or 0
         if self.device.type != "cuda":
-            return PendingOutput(out, None)
+            return PendingOutput(out, None, detect_ns)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return PendingOutput(host, event)
+        return PendingOutput(host, event, detect_ns)
 
     #: deferred-publish queue depth. 2 bounds the capture->publish latency
     #: a lagging publisher can add to ~2 batch periods; beyond that OLD
@@ -189,8 +194,13 @@ class VisionNode:
         t0 = time.monotonic()
         if pending is None:
             pending = self.detector.detect_raw_packed(frames, self.intrinsics)
+            submitted_s = 0.0
+        else:
+            # a batch dispatched by submit(): its detector span, then the
+            # wait for its result
+            submitted_s = pending.detect_ns / 1e9
         batch_dets = self.detector.unpack(pending)
-        det_time = time.monotonic() - t0
+        det_time = submitted_s + time.monotonic() - t0
         if frames.ndim == 2:
             batch_dets = [batch_dets]
 

@@ -6,30 +6,224 @@ averages (apriltag_gpu.cu:1113-1165), ~20 Copy*To debug taps
 (apriltag_gpu.h:98-183), and a --sync flag forcing synchronize+check after
 every kernel (cuda_frc971.cu:5-26). Here:
 
+  - RECORDER: host-clock spans of every detector call and its count of
+    synchronising operations, always on (the reference keeps its stage
+    averages on too). A `detector` span (Call) around
+    TorchDetector._detect_device (and pack_outputs, through
+    detect_raw_packed) opens the calling thread's call record; inside it
+    the stages open Spans: `quadfit` (cluster_and_fit) with its three
+    parts `quadfit.sort`, `quadfit.lines`, `quadfit.quads`, and
+    `decode.screen`, `decode.refine`, `decode.tail`. The record's `syncs`
+    and `sync_ns` are what the call's device.HostSyncs counted and timed
+    over it: each `.item()` read and constant-table upload, and the host
+    ns spent inside them. Spans are stamped
+    with time.time_ns(), the clock of torch.profiler's events, so device
+    operations and idle gaps in a profile can be put down to the span open
+    at their runtime call. No span synchronises, records an event or reads
+    the device.
   - stage_taps(): runs the pipeline stage by stage and returns every
     intermediate (threshold image, labels, boundary points, segment stats,
     quads, decode fields) as numpy, under the JAX package's key names — the
     Copy*To tier.
-  - StageTimer: times each stage between CUDA events over `reps` queued
-    calls with one synchronize, with running averages — the event tier.
   - check mode: stage_taps(check=True) validates invariants after every
     stage (value sets, id ranges, finite corners and poses) and raises
     RuntimeError with the failing stage's name — the --sync tier.
 
-The stages run the detector's own kernels on a CUDA tensor: K1 threshold,
+The taps run the detector's own kernels on a CUDA tensor: K1 threshold,
 then K2 ranks at 1280x800 or the flood CCL (K6, K7) at 1920x1080, as
 ops/frontend_kernel.frontend_route picks, K3 boundary compaction and
 cluster_and_fit's K4 histograms. On a CPU tensor they run the plain
 versions, and the CCL stage is ops/ccl.label_components, as the JAX
-package's taps use on the CPU. For a trace of whole calls use
-torch.profiler around detect_raw.
+package's taps use on the CPU. They run the untiered full-width pipeline,
+so they are no split of a detect_raw call: the recorder's spans are.
 """
 from __future__ import annotations
 
+import array
+import itertools
+import threading
 import time
 
 import numpy as np
 import torch
+
+# the spans a detector call records, in pipeline order
+SPANS = ("detector", "quadfit", "quadfit.sort", "quadfit.lines",
+         "quadfit.quads", "decode.screen", "decode.refine", "decode.tail")
+SPAN_SLOTS = 1 << 18
+CALL_SLOTS = 1 << 16
+
+
+class _Open:
+    """The calling thread's open call: its sequence number, start (epoch
+    ns), its HostSyncs' count and ns at the start, and the sequence number
+    of its first span."""
+    __slots__ = ("seq", "t0", "syncs", "sync_ns", "span_lo")
+
+    def __init__(self, seq: int, t0: int, syncs):
+        self.seq = seq
+        self.t0 = t0
+        self.syncs = syncs.count
+        self.sync_ns = syncs.ns
+        self.span_lo = -1
+
+
+def _ring(columns: int, slots: int) -> list:
+    """`columns` int64 columns of `slots` entries, each -1."""
+    return [array.array("q", [-1]) * slots for _ in range(columns)]
+
+
+class Recorder:
+    """Spans and call records in two rings allocated up front (int64
+    columns; a record overwrites the oldest once a ring is full). A span
+    row: its sequence number, name id, call and start and end (epoch ns);
+    a call row: its sequence number, start, end, thread, syncs, sync_ns
+    and first span. The open call is per thread, so worker threads (as
+    parallel/mesh.py runs them, each with a detector of its own) record
+    calls of their own. `enabled = False` turns every span and counter
+    into one attribute test."""
+
+    def __init__(self, span_slots: int = SPAN_SLOTS,
+                 call_slots: int = CALL_SLOTS):
+        for n in (span_slots, call_slots):
+            if n < 1 or n & (n - 1):
+                raise ValueError(f"ring size {n} is not a power of two")
+        self.enabled = True
+        self._spans = _ring(5, span_slots)
+        self._calls = _ring(7, call_slots)
+        self._span_seq = itertools.count()
+        self._call_seq = itertools.count()
+        self._ids: dict = {}
+        self._names: list = []
+        self._ids_lock = threading.Lock()
+        self._local = threading.local()
+
+    def _new_name(self, name: str) -> int:
+        with self._ids_lock:
+            i = self._ids.setdefault(name, len(self._names))
+            if i == len(self._names):
+                self._names.append(name)
+        return i
+
+    def _span(self, name: str, t0: int, t1: int) -> None:
+        i = next(self._span_seq)
+        o = getattr(self._local, "open", None)
+        if o is not None and o.span_lo < 0:
+            o.span_lo = i
+        name_id = self._ids.get(name)
+        if name_id is None:
+            name_id = self._new_name(name)
+        seq, nid, call, s0, s1 = self._spans
+        j = i & (len(seq) - 1)
+        seq[j] = -1                     # a torn row reads as empty
+        nid[j] = name_id
+        call[j] = o.seq if o is not None else -1
+        s0[j] = t0
+        s1[j] = t1
+        seq[j] = i
+
+    def _begin(self, syncs) -> _Open:
+        o = _Open(next(self._call_seq), time.time_ns(), syncs)
+        self._local.open = o
+        return o
+
+    def _end(self, o: _Open, syncs) -> None:
+        t1 = time.time_ns()
+        self._span("detector", o.t0, t1)
+        self._local.open = None
+        self._local.last_ns = t1 - o.t0
+        seq, c0, c1, thread, n_syncs, sync_ns, lo = self._calls
+        j = o.seq & (len(seq) - 1)
+        seq[j] = -1
+        c0[j] = o.t0
+        c1[j] = t1
+        thread[j] = threading.get_ident()
+        n_syncs[j] = syncs.count - o.syncs
+        sync_ns[j] = syncs.ns - o.sync_ns
+        lo[j] = o.span_lo
+        seq[j] = o.seq
+
+    def take_last_ns(self) -> int | None:
+        """The host ns of the calling thread's last closed call, once
+        (None if it closed none since the last take)."""
+        return self._local.__dict__.pop("last_ns", None)
+
+    def calls(self, since_ns: int = 0) -> list:
+        """The call records the ring still holds that started at or after
+        `since_ns`, oldest first, each a dict: t0_ns, t1_ns, thread, syncs,
+        sync_ns and spans, {name: [(t0_ns, t1_ns), ...]} of the spans
+        recorded inside the call (`detector` among them), or None where
+        the span ring no longer holds them all."""
+        c = np.stack([np.frombuffer(a, np.int64) for a in self._calls])
+        s = np.stack([np.frombuffer(a, np.int64) for a in self._spans])
+        names = list(self._names)
+        c = c[:, (c[0] >= 0) & (c[1] >= since_ns)]
+        c = c[:, np.argsort(c[0], kind="stable")]
+        held = s[0] >= 0
+        s = s[:, held]
+        oldest = int(s[0].min()) if s.shape[1] else 0
+        by_call: dict = {}
+        for name, call, t0, t1 in zip(s[1].tolist(), s[2].tolist(),
+                                      s[3].tolist(), s[4].tolist()):
+            if call >= 0:
+                by_call.setdefault(call, {}).setdefault(
+                    names[name], []).append((t0, t1))
+        out = []
+        for seq, t0, t1, thread, syncs, sync_ns, lo in c.T.tolist():
+            spans = by_call.get(seq) if 0 <= lo and oldest <= lo else None
+            out.append({"t0_ns": t0, "t1_ns": t1, "thread": thread,
+                        "syncs": syncs, "sync_ns": sync_ns,
+                        "spans": spans})
+        return out
+
+
+RECORDER = Recorder()
+
+
+class Span:
+    """A named host-clock span of the open call: `with Span("quadfit"):`."""
+    __slots__ = ("_name", "_t0")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._t0 = 0
+
+    def __enter__(self):
+        if RECORDER.enabled:
+            self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0:
+            RECORDER._span(self._name, self._t0, time.time_ns())
+
+
+class Call:
+    """The `detector` span: opens the calling thread's call record and
+    closes it with the span, with the syncs `syncs` (device.HostSyncs)
+    counted and timed in between."""
+    __slots__ = ("_syncs", "_open")
+
+    def __init__(self, syncs):
+        self._syncs = syncs
+
+    def __enter__(self):
+        self._open = RECORDER._begin(self._syncs) if RECORDER.enabled \
+            else None
+        return self
+
+    def __exit__(self, *exc):
+        if self._open is not None:
+            RECORDER._end(self._open, self._syncs)
+
+
+def span_ms(calls: list) -> dict:
+    """Mean host ms a call of each span of SPANS over `calls` (records of
+    Recorder.calls with their spans held), in SPANS order."""
+    calls = [c for c in calls if c["spans"] is not None]
+    n = max(1, len(calls))
+    return {k: sum(t1 - t0 for c in calls for t0, t1 in
+                   c["spans"].get(k, ())) / n / 1e6 for k in SPANS}
 
 
 def _stages(det):
@@ -165,56 +359,3 @@ def _check_stage(name: str, st: dict, det) -> None:
         t = a("pose_t")
         if ok.any() and not np.isfinite(t[ok]).all():
             fail("non-finite pose")
-
-
-class StageTimer:
-    """Queued per-stage timing with running averages (the CUDA-event tier).
-
-    Each stage runs once on the previous stages' outputs, then `reps` more
-    times back to back: on a CUDA tensor between two CUDA events with one
-    synchronize at the end (a stage's own host reads, such as
-    cluster_and_fit's, still wait inside the window); on a CPU tensor on
-    time.perf_counter."""
-
-    def __init__(self, det):
-        self.det = det
-        self.averages: dict = {}
-        self._n = 0
-
-    def measure(self, gray, reps: int = 10) -> dict:
-        """ms per call of each stage on `gray` (H, W) or (B, H, W)."""
-        g = _batch(self.det, gray)
-        cuda = g.device.type == "cuda"
-        state: dict = {}
-        times = {}
-        with torch.inference_mode():
-            for name, fn in _stages(self.det):
-                out = fn(g, state)                  # warm-up, and the output
-                if cuda:
-                    stream = torch.cuda.current_stream(g.device)
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record(stream)
-                    for _ in range(reps):
-                        fn(g, state)
-                    end.record(stream)
-                    end.synchronize()
-                    times[name] = start.elapsed_time(end) / reps
-                else:
-                    t0 = time.perf_counter()
-                    for _ in range(reps):
-                        fn(g, state)
-                    times[name] = (time.perf_counter() - t0) / reps * 1e3
-                state.update(out)
-        self._n += 1
-        for k, v in times.items():
-            avg = self.averages.get(k, v)
-            self.averages[k] = avg + (v - avg) / self._n
-        return times
-
-    def report(self) -> str:
-        lines = [f"{k:>10}: {v:8.2f} ms (avg)"
-                 for k, v in self.averages.items()]
-        total = sum(self.averages.values())
-        lines.append(f"{'total':>10}: {total:8.2f} ms")
-        return "\n".join(lines)

@@ -76,9 +76,12 @@ def test_bench_record_on_cpu():
     assert rec["p50_latency_ms"] == rec["sweep"]["1"]["latency_ms"]
     assert rec["b1_sync_roundtrip_ms"] > 0
     assert set(rec["stage_ms"]) == {"1", "4"}
-    assert list(rec["stage_ms"]["1"]) == ["threshold", "ccl", "boundary",
-                                          "quadfit", "refine", "decode",
-                                          "pose"]
+    # host ms a call of each span the recorder keeps
+    assert list(rec["stage_ms"]["1"]) == [
+        "detector", "quadfit", "quadfit.sort", "quadfit.lines",
+        "quadfit.quads", "decode.screen", "decode.refine", "decode.tail"]
+    assert rec["stage_ms"]["4"]["detector"] > rec["stage_ms"]["4"][
+        "quadfit"] > 0
     assert rec["active_config"]["ccl"] == "K2 rank_image"
     assert rec["streaming_fps_per_camera"] is None
     assert rec["streaming_skipped"] == "BENCH_STREAMING=0"

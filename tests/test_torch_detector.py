@@ -104,12 +104,20 @@ def test_host_api_and_packing(frames):
     g, _ = frames
     det = TorchDetector(device="cpu", width=W, height=H, **INTR)
     s0 = det.host_syncs.count
+    reads = []
+    item = det.host_syncs.item
+    det.host_syncs.item = lambda x: reads.append(x) or item(x)
     raw = det.detect_raw(g)
     # the errs branch, the decode screen's tier and the refine tier (the
     # narrow/wide cluster_and_fit choice exists only where active_points
     # < max_points, i.e. from 1280x800 up)
     assert det._active_points == det.config.max_points
-    assert det.host_syncs.count - s0 == 3
+    assert len(reads) == 3
+    # the count also holds the constant tables' uploads: 1 of the plain
+    # boundary compaction, 14 of cluster_and_fit, 6 of each decode, 1 of
+    # the tail and 2 of the plain pose
+    assert det.host_syncs.count - s0 == 3 + 30
+    del det.host_syncs.item
     packed = det.detect_raw_packed(g)
     assert tuple(packed.shape) == (2, det.config.max_quads, 36)
     back = unpack_outputs(pack_outputs(raw).numpy())

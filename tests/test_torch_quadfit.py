@@ -221,8 +221,13 @@ def test_cluster_and_fit_counts_one_host_read(clean_points):
     from ros_vision_tpu_torch.device import HostSyncs
     pts, decim = clean_points
     syncs = HostSyncs()
+    reads = []
+    item = syncs.item
+    syncs.item = lambda x: reads.append(x) or item(x)
     tqf.cluster_and_fit({k: t(v) for k, v in pts.items()}, t(decim),
                         tqf.QuadFitConfig(max_points=4096, max_segments=256,
                                           max_quads=16), syncs)
-    assert syncs.count == 1
+    assert len(reads) == 1
+    # the count also holds the constant tables' 14 uploads
+    assert syncs.count == 15
     assert torch.get_num_threads() == 1

@@ -1,4 +1,4 @@
-"""The port's stage taps, check mode and StageTimer
+"""The port's stage taps and check mode
 (ros_vision_tpu_torch/utils/tracing.py) against the JAX package's
 (ros_vision_tpu/utils/tracing.py) on the CPU, at the 320x160 scene of
 tests/test_tracing_tools.py.
@@ -146,21 +146,3 @@ def test_check_names_the_corrupted_stage(pair, monkeypatch, stage, key,
     # without check mode the same corrupted run goes through
     tracing.stage_taps(tdet, _scene(), check=False)
 
-
-def test_stage_timer(pair):
-    _, tdet = pair
-    timer = tracing.StageTimer(tdet)
-    first = timer.measure(_scene(), reps=2)
-    second = timer.measure(_scene()[None], reps=1)
-    names = ["threshold", "ccl", "boundary", "quadfit", "refine", "decode",
-             "pose"]
-    assert list(first) == names and list(second) == names
-    assert all(v > 0 for v in first.values())
-    for k in names:
-        assert timer.averages[k] == pytest.approx((first[k] + second[k]) / 2)
-    report = timer.report().splitlines()
-    assert len(report) == 8
-    assert report[0].split(":")[0].strip() == "threshold"
-    assert report[-1].split(":")[0].strip() == "total"
-    assert float(report[-1].split()[1]) == pytest.approx(
-        sum(timer.averages.values()), abs=0.01)
