@@ -169,23 +169,31 @@ Phases, each of which raises (and so exits nonzero) on failure:
      synchronising operations as HostSyncs counts them (reads and table
      uploads), as its call record holds them and as
      torch.cuda.set_sync_debug_mode("warn") warns of them, all equal;
- 12. mesh (parallel/mesh.py): detect_raw and detect_raw_packed of a
+ 12. quadfit_graph (ops/quadfit.GraphRunner): cluster_and_fit's eager,
+     capturing and replaying calls bit-identical to its eager stages in
+     every returned tensor, at 1280x800 (32,768 slots) and 1920x1080
+     (the narrow 32,768 and the full 131,072), on the bench batch and on
+     one that takes the stable windowed-error branch, use_pallas_sort off
+     and on; launches counted as the eager call's; one synchronising
+     operation a replayed call; results kept through later replays; the
+     three kinds of call under torch.profiler; host ms eager vs replayed;
+ 13. mesh (parallel/mesh.py): detect_raw and detect_raw_packed of a
      detector sharded by TorchDetector.use_mesh over [cuda:0, cuda:0]
      on the 1280x800 B=4 batch; the ok mask in
      every slot and every output in the accepted slots bit-identical to
      the unsharded B=4 call and to per-row B=1 calls; ms a call of both;
- 13. soak (tools/soak.py) against the f64 oracle: parity on 100 seeds,
+ 14. soak (tools/soak.py) against the f64 oracle: parity on 100 seeds,
      hard on 50 with --audit-misses, gate on 4; no mismatch, no miss the
      oracle does not share, the flood path's kernels (320x160, 640x400);
- 14. bench: python -m ros_vision_tpu_torch.bench in a subprocess with
+ 15. bench: python -m ros_vision_tpu_torch.bench in a subprocess with
      BENCH_ENV's cuts; its last line parsed, tags_ok, every key of
      bench.py's record filled (the golden photo's marked skipped when the
      photo is absent); its headline, sweep, streaming and stage lines.
-Each of phases 10-14 prints its seconds beside the card's name and power
+Each of phases 10-15 prints its seconds beside the card's name and power
 limit.
 K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
-Every path of phases 3-13 runs with the launch counts set to 0 just
+Every path of phases 3-14 runs with the launch counts set to 0 just
 before it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
 K6, K7, K10, K11, P1 and P2 report equal their fixed number per call
@@ -305,12 +313,12 @@ def check(cond, msg: str) -> None:
 
 
 def bench_scene(seed: int, width: int = W, height: int = H,
-                noise: float = 1.0):
+                noise: float = 1.0, scale: float | None = None):
     """The bench.py scene (4 tags at 1280x800, noise sigma 1), its layout
-    scaled by width / 1280 for other frame sizes."""
+    scaled by `scale`, by default width / 1280, for other frame sizes."""
     from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                 simple_square_corners)
-    s = width / W
+    s = width / W if scale is None else scale
     return render_scene(
         [0, 42, 311, 100],
         [simple_square_corners(300 * s, 250 * s, 90 * s),
@@ -1518,7 +1526,7 @@ def capture_calls(pts: dict, decim, k: int) -> dict:
     sk.sort_tpu, qf.histogram = sort_recording, hist_recording
     try:
         qf.cluster_and_fit(pts, decim, qf.QuadFitConfig(
-            max_points=k, use_pallas_sort=True))
+            max_points=k, use_pallas_sort=True), graphs=qf.GraphRunner())
     finally:
         sk.sort_tpu, qf.histogram = real_sort, real_hist
     check(len(hists) == 2, f"cluster_and_fit made {len(hists)} histograms")
@@ -1550,10 +1558,10 @@ def capture_pose_args(dev, frames) -> tuple:
     det = TorchDetector(device=dev, **detector_kw(width, height))
     calls, real = [], pose.estimate_poses
 
-    def recording(h, tag_size, fx, fy, cx, cy, n_steps=50):
+    def recording(h, tag_size, fx, fy, cx, cy, n_steps=50, syncs=None):
         calls.append((h.contiguous().clone(), tag_size,
                       *(v.contiguous().clone() for v in (fx, fy, cx, cy))))
-        return real(h, tag_size, fx, fy, cx, cy, n_steps)
+        return real(h, tag_size, fx, fy, cx, cy, n_steps, syncs)
 
     pose.estimate_poses = recording
     try:
@@ -3115,6 +3123,192 @@ def tracing_phase(dev, batches: dict) -> tuple:
     return out, paths
 
 
+def big_tag_frames(width: int, height: int, side: float,
+                   noise: float) -> np.ndarray:
+    """Four frames whose first holds one tag `side` px wide: a blob-pair
+    segment of over ERRS_STABLE_MIN_SZ points, so cluster_and_fit takes
+    its stable windowed-error branch; the others are bench frames at noise
+    sigma `noise`."""
+    from ros_vision_tpu_torch.apriltag.render import (render_scene,
+                                                      simple_square_corners)
+    big, _ = render_scene([7], [simple_square_corners(
+        width / 2, height / 2, side, angle_deg=5)], width, height,
+        noise_sigma=0.75, seed=5)
+    return np.stack([big] + [bench_scene(seed, width, height, noise)[0]
+                             for seed in (1, 2, 3)])
+
+
+def quadfit_graph_phase(dev, batches: dict) -> dict:
+    """ops/quadfit.GraphRunner on the card: cluster_and_fit's eager,
+    capturing and replaying calls (a fresh runner each: the first call at
+    a key runs eagerly, the second captures, the third replays) against
+    the eager stages (_cluster_and_fit), every returned tensor bit for
+    bit, on the detector's inputs (K1, then K2 or the flood front end, K3)
+    at 1280x800 (32,768 slots) and 1920x1080 (the narrow 32,768 and the
+    full 131,072), on the bench batch and on a batch with one segment
+    over ERRS_STABLE_MIN_SZ points (the stable branch), with
+    use_pallas_sort off and on; a replay's _build launch counts equal to
+    the eager call's; one synchronising operation (the branch read) in a
+    replaying call under torch.cuda.set_sync_debug_mode("warn"); a
+    returned result unchanged after a later call replays the graphs on
+    the batch's rows reversed, which give the eager call's rows reversed;
+    eager, capture and replay under torch.profiler; host ms a call, eager
+    against replayed."""
+    import dataclasses
+    import warnings
+
+    import torch
+    from ros_vision_tpu_torch import _build
+    from ros_vision_tpu_torch.apriltag.detector import (
+        TorchDetector, adaptive_threshold_fused, frontend)
+    from ros_vision_tpu_torch.device import HostSyncs
+    from ros_vision_tpu_torch.ops import quadfit as qf
+
+    def inputs(det, frames):
+        g = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+        decim, th = adaptive_threshold_fused(g)
+        pts, counts = frontend(th, det.config.max_points,
+                               det._qcfg.max_boundary_pixels)
+        return pts, decim, int(counts.max())
+
+    # (batch, frames, the branch it must take or None): the bench batches
+    # (sigma 1 at 1280x800, 0.75 at 1920x1080) fill more than the narrow
+    # width; the 1280x800 layout's tags at sigma 0.3 or 0.5 make no
+    # segment of over ERRS_STABLE_MIN_SZ points, and fit the narrow width
+    cases = []
+    for (width, height), (bench4, _) in batches.items():
+        det = TorchDetector(device=dev, **detector_kw(width, height))
+        noise = 0.3 if width == W else 0.5
+        small = np.stack([bench_scene(seed, width, height, noise, 1.0)[0]
+                          for seed in range(4)])
+        sets = [("bench", bench4, None),
+                (f"small tags sigma {noise}", small, False),
+                ("big tag", big_tag_frames(width, height,
+                                           600 if width == W else 900,
+                                           noise), True)]
+        for batch, frames, stable in sets:
+            pts, decim, most = inputs(det, frames)
+            ka = det._active_points
+            if ka < pts["key"].shape[1] and most <= ka:
+                # the detector's narrow width, where every frame fits
+                cases.append((f"{width}x{height} {batch} narrow {ka}",
+                              {k: v[:, :ka] for k, v in pts.items()},
+                              decim, det._qcfg_narrow, stable))
+            cases.append((f"{width}x{height} {batch} "
+                          f"{pts['key'].shape[1]}", pts, decim, det._qcfg,
+                          stable))
+    names = [c[0] for c in cases]
+    for need in (f"{W}x{H} small tags sigma 0.3 32768",
+                 f"{W}x{H} big tag 32768", f"{W2}x{H2} bench 131072",
+                 f"{W2}x{H2} small tags sigma 0.5 narrow 32768",
+                 f"{W2}x{H2} small tags sigma 0.5 131072",
+                 f"{W2}x{H2} big tag narrow 32768",
+                 f"{W2}x{H2} big tag 131072"):
+        check(need in names, f"no case {need} among {names}")
+
+    def eager(pts, decim, cfg):
+        return qf._cluster_and_fit(pts, decim, cfg, HostSyncs())
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _build.counts(), _build.kernel_counts()
+
+    def same(what, got, want):
+        check(set(got) == set(want), f"{what}: keys {sorted(got)}")
+        for k in want:
+            check_same_bits(f"{what} {k}", got[k], want[k])
+
+    out = {}
+    for name, pts, decim, base, branch in cases:
+        for pallas in (False, True):
+            cfg = dataclasses.replace(base, use_pallas_sort=pallas)
+            what = f"{name} use_pallas_sort={pallas}"
+            stable = bool(qf.fit_sort(cfg, tuple(decim.shape), pts["key"],
+                                      pts["pack2"])["stable"])
+            check(branch in (None, stable), f"{what}: stable {stable}")
+            want, w_counts, w_kernels = counted(
+                lambda: eager(pts, decim, cfg))
+            runner = qf.GraphRunner()
+            got = []
+            for how in qf.GraphRunner.RUNS:
+                before = dict(runner.runs)
+                res, counts, kernels = counted(lambda: qf.cluster_and_fit(
+                    pts, decim, cfg, graphs=runner))
+                check(runner.runs[how] == before[how] + 1,
+                      f"{what}: call ran {runner.runs}, not {how}")
+                same(f"{what} {how}", res, want)
+                check(counts == w_counts and kernels == w_kernels,
+                      f"{what} {how}: launches {counts} / {kernels}, eager "
+                      f"{w_counts} / {w_kernels}")
+                got.append(res)
+            torch.cuda.synchronize()
+            syncs = HostSyncs()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    flipped = qf.cluster_and_fit(
+                        {k: v.flip(0) for k, v in pts.items()},
+                        decim.flip(0), cfg, syncs, runner)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            warned = sum("called a synchronizing CUDA operation"
+                         in str(w.message) for w in caught)
+            check(runner.runs["replayed"] == 2 and syncs.count == 1
+                  and warned == 1, f"{what}: reversed rows ran "
+                  f"{runner.runs}, {syncs.count} syncs counted, {warned} "
+                  "warned")
+            for res in got:
+                same(f"{what} after a later replay", res, want)
+            same(f"{what} reversed rows", flipped,
+                 {k: v.flip(0) for k, v in want.items()})
+            out[what] = dict(stable=stable)
+        ms = {}
+        for how, runner in (("eager", None), ("replayed", qf.GraphRunner())):
+            fn = (lambda: eager(pts, decim, base)) if runner is None else \
+                (lambda r=runner: qf.cluster_and_fit(pts, decim, base,
+                                                     graphs=r))
+            fn()
+            fn()
+            times = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            ms[how] = statistics.median(times)
+        out[name] = dict(host_ms=ms)
+        print(f"  {name}: eager, capture, replay and a replay on reversed "
+              f"rows bit-identical to the eager stages (use_pallas_sort "
+              f"off and on), launches equal, 1 sync a replayed call; host "
+              f"ms a call (median of {REPS}, no synchronize inside, "
+              f"{CARD}): eager {ms['eager']:.3f}, replayed "
+              f"{ms['replayed']:.3f}")
+    name, pts, decim, cfg, _ = cases[0]
+    runner = qf.GraphRunner()
+    want = eager(pts, decim, cfg)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in qf.GraphRunner.RUNS:
+            res = qf.cluster_and_fit(pts, decim, cfg, graphs=runner)
+        torch.cuda.synchronize()
+    same(f"{name} under torch.profiler", res, want)
+    check(runner.runs == {"eager": 1, "captured": 1, "replayed": 1},
+          f"under torch.profiler: {runner.runs}")
+    kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                  if e.device_type().name == "CUDA")
+    held = qf._graph_launch() is not None and hasattr(
+        torch.cuda.CUDAGraph, "raw_cuda_graph_exec")
+    check(held, "graphs are not launched with the GIL held")
+    print(f"  {name}: eager, capture and replay under torch.profiler "
+          f"bit-identical; {kernels} device events profiled; graphs "
+          f"launched by cudaGraphLaunch with the GIL held")
+    return out
+
+
 def mesh_phase(dev, bench4) -> tuple:
     """parallel/mesh.py: a two-way mesh [dev, dev], installed by
     TorchDetector.use_mesh as VisionSystem installs it, over the bench B=4
@@ -3339,6 +3533,7 @@ def main() -> int:
     for name, run in (
             ("tf32", lambda: tf32_phase(dev, sizes)),
             ("tracing", lambda: tracing_phase(dev, sizes)),
+            ("quadfit_graph", lambda: (quadfit_graph_phase(dev, sizes), {})),
             ("mesh", lambda: mesh_phase(dev, bench4)),
             ("soak", lambda: soak_phase(dev)),
             ("bench", lambda: (bench_phase(), {}))):

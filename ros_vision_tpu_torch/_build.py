@@ -13,6 +13,7 @@ raises on anything but 0.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -180,13 +181,37 @@ class LaunchCounter:
 
     def add(self, kernels: int = 0) -> None:
         """One more launch of the wrapper, which made `kernels` device
-        kernel launches."""
+        kernel launches; recorded instead where the calling thread is
+        inside recording()."""
+        held = getattr(_RECORDING, "launches", None)
+        if held is not None:
+            held.append((self, kernels))
+            return
         with self._lock:
             self.count += 1
             self.kernels += kernels
 
 
 COUNTERS: dict[str, LaunchCounter] = {}
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside it the calling thread's wrapper launches are recorded, not
+    counted, in the list it yields: a CUDA graph's capture enqueues no
+    work, and each replay of the graph counts them with replayed()."""
+    _RECORDING.launches = held = []
+    try:
+        yield held
+    finally:
+        _RECORDING.launches = None
+
+
+def replayed(launches: list) -> None:
+    """Count the launches recording() recorded, once more."""
+    for c, kernels in launches:
+        c.add(kernels)
 
 
 def counter(name: str) -> LaunchCounter:

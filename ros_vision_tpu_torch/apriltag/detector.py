@@ -17,7 +17,9 @@ On a CUDA tensor the hand-written kernels run; on a CPU tensor their
 plain versions do. There is no other switch. PyTorch runs eagerly, so the
 JAX package's device-side lax.cond/lax.switch choices become host reads
 (counted in `host_syncs`, with the constant tables' uploads); each branch
-computes exactly what the JAX branch computes. Every call records its
+computes exactly what the JAX branch computes. On a CUDA device
+cluster_and_fit replays its three stages as CUDA graphs once a shape
+recurs (ops/quadfit.GraphRunner, one a detector). Every call records its
 spans and synchronising operations in utils/tracing.RECORDER.
 """
 from __future__ import annotations
@@ -190,6 +192,7 @@ class TorchDetector:
         self._qcfg_narrow = dataclasses.replace(
             self._qcfg, max_points=self._active_points)
         self.host_syncs = HostSyncs()
+        self._quadfit_graphs = quadfit.GraphRunner()
         self.use_mesh(None)
 
     def use_mesh(self, mesh: list | None) -> None:
@@ -244,9 +247,10 @@ class TorchDetector:
             # every frame fits
             qf = quadfit.cluster_and_fit(
                 {kk: v[:, :ka] for kk, v in pts.items()}, decim,
-                self._qcfg_narrow, syncs)
+                self._qcfg_narrow, syncs, self._quadfit_graphs)
         else:
-            qf = quadfit.cluster_and_fit(pts, decim, self._qcfg, syncs)
+            qf = quadfit.cluster_and_fit(pts, decim, self._qcfg, syncs,
+                                         self._quadfit_graphs)
         corners = dec.adjust_pixel_centers(qf["corners"])
         qvalid = qf["quad_valid"]
 

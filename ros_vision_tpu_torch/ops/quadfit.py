@@ -17,19 +17,26 @@ configurations give bit-identical outputs.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+import gc
 import itertools
 import math
+import threading
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.device import host_syncs
 from ros_vision_tpu_torch.ops import mathf, scan
 from ros_vision_tpu_torch.ops import segments as segs
 from ros_vision_tpu_torch.ops import sort_kernel
 from ros_vision_tpu_torch.ops.gather_kernel import histogram
+from ros_vision_tpu_torch.utils import tracing
 from ros_vision_tpu_torch.utils.tracing import Span
 
 MIN_BLOB_PIXELS = 25
@@ -247,395 +254,701 @@ def _float_sort_key(x: torch.Tensor) -> torch.Tensor:
     return key + 2 ** 31
 
 
+
+
+_TABLES: dict = {}
+
+
+def constant_tables(device: torch.device, syncs) -> dict:
+    """cluster_and_fit's 14 constant tables on `device`, uploaded (through
+    `syncs`, device.HostSyncs) on the device's first call and kept for
+    every later one, with the values and dtypes torch.as_tensor gives:
+    the 7 smoothing taps' slot indices, the fix slots' neighbours, the
+    slots a fix-slot peak may take, the 45 pairs' ends, the 210 combos'
+    pairs and their last maximum."""
+    key = str(device)
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        up = syncs.upload
+        tabs = _TABLES.setdefault(key, {
+            "taps": tuple(up([((s if s < 5 else s - 10) + j) % 16
+                              for s in range(10)], device)
+                          for j in range(-3, 4)),
+            "nxt_idx": up([1, 2, 3, 4, 0, 6, 7, 8, 9, 0], device),
+            "prv_idx": up([9, 0, 1, 2, 0, 4, 5, 6, 7, 8], device),
+            "pk_slot_ok": up([True, True, True, True, False, False, True,
+                              True, True, True], device),
+            "pair_a": up(_PAIR_A, device),
+            "pair_b": up(_PAIR_B, device),
+            "combo_pairs": up(_COMBO_PAIRS, device),
+            "combo_last": up(_COMBOS[:, 3], device)})
+    return tabs
+
+
 def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
-                    syncs=None) -> dict:
+                    syncs=None, graphs: "GraphRunner | None" = None) -> dict:
     """Compacted boundary points -> quad corners (B, NQ, 4, 2) in
     decimated pixel coords, quad_valid (B, NQ), n_quads (B,), plus stage
     taps. `syncs` (device.HostSyncs) counts the one host read that picks
-    the windowed-error formulation (a lax.cond in the JAX package) and
-    the constant tables' uploads. The `quadfit` span, in three parts:
-    `quadfit.sort` (the key sort and the theta sort), `quadfit.lines`
-    (moments, windowed errors, smoothing and peaks, the top-10 maxima)
-    and `quadfit.quads` (pair fits, combos, corners, slots by area)."""
+    the windowed-error formulation (a lax.cond in the JAX package), and
+    the constant tables' uploads on a device's first call. The `quadfit`
+    span, in three parts, one stage each: `quadfit.sort` (the key sort and
+    the theta sort), `quadfit.lines` (the read; moments, windowed errors,
+    smoothing and peaks, the top-10 maxima) and `quadfit.quads` (pair
+    fits, combos, corners, slots by area). On a CUDA device the stages run
+    through `graphs` (the calling thread's own GraphRunner when None),
+    which replays each as a CUDA graph once its shapes recur; on the CPU
+    they run eagerly."""
     with Span("quadfit"):
-        return _cluster_and_fit(pts, decim, cfg, host_syncs(syncs))
+        syncs = host_syncs(syncs)
+        if decim.device.type != "cuda":
+            return _cluster_and_fit(pts, decim, cfg, syncs)
+        if graphs is None:
+            graphs = _thread_runner()
+        return graphs.run(pts, decim, cfg, syncs)
 
 
 def _cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
                      syncs) -> dict:
-    b, k = pts["key"].shape
-    dev = pts["key"].device
+    """The three stages in turn, eagerly."""
+    tabs = constant_tables(decim.device, syncs)
+    with Span("quadfit.sort"):
+        s = fit_sort(cfg, tuple(decim.shape), pts["key"], pts["pack2"])
+    with Span("quadfit.lines"):
+        stable = syncs.item(s["stable"])
+        ln = fit_lines(cfg, tabs, stable, decim, **_take(s, _LINES_IN))
+    with Span("quadfit.quads"):
+        q = fit_quads(cfg, tabs, **_take(s, _QUADS_IN_S),
+                      **_take(ln, _QUADS_IN_L))
+    return _result(s, ln, q)
+
+
+# what each stage takes of the stages before it, and what the call returns
+_LINES_IN = ("x2", "y2", "seg", "valid_pt", "pbc", "start", "sz_pt", "pos",
+             "count", "start_tab", "seg_ok")
+_QUADS_IN_S = ("count", "start_tab", "cx", "cy")
+_QUADS_IN_L = ("pref", "maxima", "nmax", "seg_quad_ok")
+_RETURNED = (("q", "corners"), ("q", "quad_valid"), ("q", "n_quads"),
+             ("s", "seg"), ("s", "pos"), ("l", "errs"), ("l", "is_peak"),
+             ("l", "maxima"), ("l", "nmax"), ("s", "seg_ok"),
+             ("s", "count"))
+
+
+def _take(d: dict, names: tuple) -> dict:
+    return {k: d[k] for k in names}
+
+
+def _result(s: dict, ln: dict, q: dict, copy=lambda t: t) -> dict:
+    parts = {"s": s, "l": ln, "q": q}
+    return {k: copy(parts[p][k]) for p, k in _RETURNED}
+
+
+def fit_sort(cfg: QuadFitConfig, decim_shape: tuple, key: torch.Tensor,
+             pack2: torch.Tensor) -> dict:
+    """Stage 1, `quadfit.sort`: the sort by (blob-pair key, payload), the
+    segment tables, the theta sort within segments, and `stable`, the
+    flag the host reads to pick the windowed-error formulation."""
+    b, k = key.shape
+    dev = key.device
     nseg = cfg.max_segments
     nseg1 = nseg + 1
     i32 = torch.int32
     f32 = torch.float32
     i_global = torch.arange(k, dtype=i32, device=dev)[None].expand(b, k)
-
     sort1, sort2 = _make_sorters(cfg)
 
     def clipk(t):
         return t.clamp(0, k - 1)
 
-    with Span("quadfit.sort"):
-        # ---- sort by (blob-pair key, x-major payload) -----------------------
-        key_s, pack2 = sort2(pts["key"], pts["pack2"])
-        x2, y2, gx, gy = unpack_payload(pack2)
-        valid_pt = key_s < KEY_INVALID
-        seg = segs.segment_ids_from_sorted_keys(key_s, valid=valid_pt,
-                                                max_segments=nseg)
+    # ---- sort by (blob-pair key, x-major payload) ---------------------------
+    key_s, pack2 = sort2(key, pack2)
+    x2, y2, gx, gy = unpack_payload(pack2)
+    valid_pt = key_s < KEY_INVALID
+    seg = segs.segment_ids_from_sorted_keys(key_s, valid=valid_pt,
+                                            max_segments=nseg)
 
-        count = histogram(seg, nseg1)                          # (B, NSEG1)
-        countf = count.to(f32)
-        start_tab = (scan.cumsum_mxu(countf) - countf).to(i32)
-        end_tab = start_tab + count - 1
+    count = histogram(seg, nseg1)                              # (B, NSEG1)
+    countf = count.to(f32)
+    start_tab = (scan.cumsum_mxu(countf) - countf).to(i32)
+    end_tab = start_tab + count - 1
 
-        xmin = segs.take1(x2, clipk(start_tab))
-        xmax = segs.take1(x2, clipk(end_tab))
-        ykey = sort1(torch.where(valid_pt, seg, nseg) << 11 | y2)
-        ymin = segs.take1(ykey, clipk(start_tab)) & 0x7FF
-        ymax = segs.take1(ykey, clipk(end_tab)) & 0x7FF
-        cx = (xmin + xmax).to(f32) * 0.5 + 0.05118
-        cy = (ymin + ymax).to(f32) * 0.5 - 0.028581
+    xmin = segs.take1(x2, clipk(start_tab))
+    xmax = segs.take1(x2, clipk(end_tab))
+    ykey = sort1(torch.where(valid_pt, seg, nseg) << 11 | y2)
+    ymin = segs.take1(ykey, clipk(start_tab)) & 0x7FF
+    ymax = segs.take1(ykey, clipk(end_tab)) & 0x7FF
+    cx = (xmin + xmax).to(f32) * 0.5 + 0.05118
+    cy = (ymin + ymax).to(f32) * 0.5 - 0.028581
 
-        ptab = torch.stack([start_tab.to(f32), count.to(f32), cx, cy], dim=-1)
-        pbc = segs.take1(ptab, seg)
-        dxp = x2.to(f32) - pbc[..., 2]
-        dyp = y2.to(f32) - pbc[..., 3]
+    ptab = torch.stack([start_tab.to(f32), count.to(f32), cx, cy], dim=-1)
+    pbc = segs.take1(ptab, seg)
+    dxp = x2.to(f32) - pbc[..., 2]
+    dyp = y2.to(f32) - pbc[..., 3]
 
-        dterm = torch.where(valid_pt, dxp * gx + dyp * gy, 0.0)
-        dcum = scan.cumsum_mxu(dterm)
-        dot = (segs.take1(dcum, clipk(end_tab))
-               - torch.where(start_tab > 0,
-                             segs.take1(dcum, clipk(start_tab - 1)), 0.0))
+    dterm = torch.where(valid_pt, dxp * gx + dyp * gy, 0.0)
+    dcum = scan.cumsum_mxu(dterm)
+    dot = (segs.take1(dcum, clipk(end_tab))
+           - torch.where(start_tab > 0,
+                         segs.take1(dcum, clipk(start_tab - 1)), 0.0))
 
-        h2, w2 = decim.shape[1], decim.shape[2]
-        max_perimeter = 3 * (2 * w2 + 2 * h2)
-        bbox_ok = ((xmax - xmin) * (ymax - ymin)) >= cfg.tag_width
-        border_ok = torch.zeros_like(bbox_ok)
-        if cfg.normal_border:
-            border_ok = border_ok | (dot >= 0)
-        if cfg.reversed_border:
-            border_ok = border_ok | (dot < 0)
-        seg_ok = ((count >= MIN_CLUSTER_POINTS) & (count <= max_perimeter)
-                  & bbox_ok & border_ok)
-        seg_ok[:, nseg] = False
+    h2, w2 = decim_shape[1], decim_shape[2]
+    max_perimeter = 3 * (2 * w2 + 2 * h2)
+    bbox_ok = ((xmax - xmin) * (ymax - ymin)) >= cfg.tag_width
+    border_ok = torch.zeros_like(bbox_ok)
+    if cfg.normal_border:
+        border_ok = border_ok | (dot >= 0)
+    if cfg.reversed_border:
+        border_ok = border_ok | (dot < 0)
+    seg_ok = ((count >= MIN_CLUSTER_POINTS) & (count <= max_perimeter)
+              & bbox_ok & border_ok)
+    seg_ok[:, nseg] = False
 
-        # ---- theta sort within segments (seg << 20 | theta fixed point) -----
-        theta = mathf.atan2(dyp, dxp)
-        theta_fx = ((theta + math.pi) * (2 ** 20 / (2 * math.pi))).to(i32) \
-            .clamp(0, 2 ** 20 - 1)
-        sort_key = (torch.where(valid_pt, seg, nseg) << 20) | theta_fx
-        pack3 = (x2 << 11) | y2
-        sort_key_s, pack3 = sort2(sort_key, pack3)
-        seg = sort_key_s >> 20
-        x2 = pack3 >> 11
-        y2 = pack3 & 0x7FF
-        valid_pt = seg < nseg
+    # ---- theta sort within segments (seg << 20 | theta fixed point) ---------
+    theta = mathf.atan2(dyp, dxp)
+    theta_fx = ((theta + math.pi) * (2 ** 20 / (2 * math.pi))).to(i32) \
+        .clamp(0, 2 ** 20 - 1)
+    sort_key = (torch.where(valid_pt, seg, nseg) << 20) | theta_fx
+    pack3 = (x2 << 11) | y2
+    sort_key_s, pack3 = sort2(sort_key, pack3)
+    seg = sort_key_s >> 20
+    x2 = pack3 >> 11
+    y2 = pack3 & 0x7FF
+    valid_pt = seg < nseg
 
-        # segment starts/counts/centers are invariant under the within-segment
-        # theta sort, so the pre-sort broadcast `pbc` still applies
-        start = pbc[..., 0].to(i32)
-        sz_pt = pbc[..., 1].to(i32)
-        pos = i_global - start
+    # segment starts/counts/centers are invariant under the within-segment
+    # theta sort, so the pre-sort broadcast `pbc` still applies
+    start = pbc[..., 0].to(i32)
+    sz_pt = pbc[..., 1].to(i32)
+    pos = i_global - start
+    stable = torch.where(seg_ok, count, 0).max() > ERRS_STABLE_MIN_SZ
+    return {"x2": x2, "y2": y2, "seg": seg, "valid_pt": valid_pt, "pbc": pbc,
+            "start": start, "sz_pt": sz_pt, "pos": pos, "count": count,
+            "start_tab": start_tab, "cx": cx, "cy": cy, "seg_ok": seg_ok,
+            "stable": stable}
 
-    with Span("quadfit.lines"):
-        # ---- line-fit moments, segmented prefix sums ------------------------
-        px = x2.to(f32) * 0.5 + 0.5
-        py = y2.to(f32) * 0.5 + 0.5
-        xc = px - (pbc[..., 2] * 0.5 + 0.5)
-        yc = py - (pbc[..., 3] * 0.5 + 0.5)
-        ix = px.to(i32)
-        iy = py.to(i32)
-        inb = (ix > 0) & (ix + 1 < w2) & (iy > 0) & (iy + 1 < h2)
-        ixc = ix.clamp(1, w2 - 2)
-        iyc = iy.clamp(1, h2 - 2)
 
-        dint = decim.to(i32)
-        gxi = F.pad(dint[:, :, 2:] - dint[:, :, :-2], (1, 1))
-        gyi = F.pad(dint[:, 2:, :] - dint[:, :-2, :], (0, 0, 1, 1))
-        gplane = (((gxi + 255) << 10) | (gyi + 255)).reshape(b, -1)
-        gpt = segs.take1(gplane, iyc * w2 + ixc)
-        gimx = ((gpt >> 10) - 255).to(f32)
-        gimy = ((gpt & 1023) - 255).to(f32)
-        wgt = torch.where(inb, torch.sqrt(gimx * gimx + gimy * gimy) + 1.0,
-                          1.0)
-        wgt = wgt * WEIGHT_SCALE
-        wgt = torch.where(valid_pt, wgt, 0.0)
-        mom = torch.stack([wgt * xc, wgt * yc, wgt * xc * xc, wgt * xc * yc,
-                           wgt * yc * yc, wgt], dim=-1)       # (B, K, 6)
-        pref = scan.segmented_cumsum_from_starts(mom, start)
+def fit_lines(cfg: QuadFitConfig, tabs: dict, stable: bool,
+              decim: torch.Tensor, x2, y2, seg, valid_pt, pbc, start, sz_pt,
+              pos, count, start_tab, seg_ok) -> dict:
+    """Stage 2, `quadfit.lines`, after the host read: line-fit moments and
+    their segmented prefix sums, the windowed errors (the stable
+    formulation when `stable`), 7-tap smoothing and peaks, the top-10
+    maxima of each segment."""
+    b, k = x2.shape
+    dev = x2.device
+    nseg = cfg.max_segments
+    nseg1 = nseg + 1
+    i32 = torch.int32
+    f32 = torch.float32
+    h2, w2 = decim.shape[1], decim.shape[2]
 
-        def pref_at(position, nonneg=False):
-            gathered = segs.take1(pref, clipk(start + clipk(position)))
-            if nonneg:
-                return gathered
-            return torch.where((position >= 0)[..., None], gathered, 0.0)
+    def clipk(t):
+        return t.clamp(0, k - 1)
 
-        total = pref_at(sz_pt - 1, nonneg=True)
+    # ---- line-fit moments, segmented prefix sums ----------------------------
+    px = x2.to(f32) * 0.5 + 0.5
+    py = y2.to(f32) * 0.5 + 0.5
+    xc = px - (pbc[..., 2] * 0.5 + 0.5)
+    yc = py - (pbc[..., 3] * 0.5 + 0.5)
+    ix = px.to(i32)
+    iy = py.to(i32)
+    inb = (ix > 0) & (ix + 1 < w2) & (iy > 0) & (iy + 1 < h2)
+    ixc = ix.clamp(1, w2 - 2)
+    iyc = iy.clamp(1, h2 - 2)
 
-        def window_moments(a, bpos):
-            """Circular window [a..bpos] within the segment (positions
-            mod sz): the wrapped window is the direct one plus the
-            segment total."""
-            am = torch.where(a < 0, a + sz_pt, a)
-            bm = torch.where(bpos >= sz_pt, bpos - sz_pt, bpos)
-            direct = am <= bm
-            mwin = (pref_at(bm, nonneg=True) - pref_at(am - 1)
-                    + torch.where(direct[..., None], 0.0, total))
-            nwin = torch.where(direct, bm - am + 1, sz_pt - am + bm + 1)
-            return mwin, nwin.to(f32)
+    dint = decim.to(i32)
+    gxi = F.pad(dint[:, :, 2:] - dint[:, :, :-2], (1, 1))
+    gyi = F.pad(dint[:, 2:, :] - dint[:, :-2, :], (0, 0, 1, 1))
+    gplane = (((gxi + 255) << 10) | (gyi + 255)).reshape(b, -1)
+    gpt = segs.take1(gplane, iyc * w2 + ixc)
+    gimx = ((gpt >> 10) - 255).to(f32)
+    gimy = ((gpt & 1023) - 255).to(f32)
+    wgt = torch.where(inb, torch.sqrt(gimx * gimx + gimy * gimy) + 1.0, 1.0)
+    wgt = wgt * WEIGHT_SCALE
+    wgt = torch.where(valid_pt, wgt, 0.0)
+    mom = torch.stack([wgt * xc, wgt * yc, wgt * xc * xc, wgt * xc * yc,
+                       wgt * yc * yc, wgt], dim=-1)           # (B, K, 6)
+    pref = scan.segmented_cumsum_from_starts(mom, start)
 
-        # ---- windowed errors ------------------------------------------------
-        ksz = torch.clamp_max(torch.div(sz_pt, 12, rounding_mode="floor"), 20)
-        fit_ok_pt = valid_pt & (ksz >= 2)
+    def pref_at(position, nonneg=False):
+        gathered = segs.take1(pref, clipk(start + clipk(position)))
+        if nonneg:
+            return gathered
+        return torch.where((position >= 0)[..., None], gathered, 0.0)
 
-        def errs_fast():
-            mwin, nwin = window_moments(pos - ksz, pos + ksz)
-            return fit_line_f32(mwin, nwin)["err"]
+    total = pref_at(sz_pt - 1, nonneg=True)
 
-        def errs_stable():
-            """Windows of giant segments from overlapped-block prefixes: each
-            range lies inside one (128+40)-element block, so the rounding of
-            every subtraction scales with the block's content."""
-            opref, blk, ov = scan.overlapped_cumsum(mom)
-            bw = blk + ov
+    def window_moments(a, bpos):
+        """Circular window [a..bpos] within the segment (positions mod
+        sz): the wrapped window is the direct one plus the segment
+        total."""
+        am = torch.where(a < 0, a + sz_pt, a)
+        bm = torch.where(bpos >= sz_pt, bpos - sz_pt, bpos)
+        direct = am <= bm
+        mwin = (pref_at(bm, nonneg=True) - pref_at(am - 1)
+                + torch.where(direct[..., None], 0.0, total))
+        nwin = torch.where(direct, bm - am + 1, sz_pt - am + bm + 1)
+        return mwin, nwin.to(f32)
 
-            def lrs(g0, g1, live):
-                g0c = clipk(g0)
-                g1c = clipk(g1)
-                j = torch.div(g1c, blk, rounding_mode="floor")
-                base = j * bw - j * blk + ov
-                hi = segs.take1(opref, base + g1c)
-                lo_pos = base + g0c - 1
-                lo = torch.where((g0c - 1 >= j * blk - ov)[..., None],
-                                 segs.take1(opref, lo_pos.clamp_min(0)), 0.0)
-                return torch.where(live[..., None], hi - lo, 0.0)
+    # ---- windowed errors ----------------------------------------------------
+    ksz = torch.clamp_max(torch.div(sz_pt, 12, rounding_mode="floor"), 20)
+    fit_ok_pt = valid_pt & (ksz >= 2)
 
-            a = pos - ksz
-            bp = pos + ksz
-            wrap_lo = a < 0
-            wrap_hi = bp >= sz_pt
-            p1a = start + a.clamp_min(0)
-            p1b = start + torch.minimum(bp, sz_pt - 1)
-            p2a = torch.where(wrap_lo, start + sz_pt + a, start)
-            p2b = torch.where(wrap_lo, start + sz_pt - 1, start + bp - sz_pt)
-            mwin = (lrs(p1a, p1b, fit_ok_pt)
-                    + lrs(p2a, p2b, fit_ok_pt & (wrap_lo | wrap_hi)))
-            nwin = (2 * ksz + 1).to(f32)
-            return fit_line_f32(mwin, nwin)["err"]
+    def errs_fast():
+        mwin, nwin = window_moments(pos - ksz, pos + ksz)
+        return fit_line_f32(mwin, nwin)["err"]
 
-        sz_screened = torch.where(seg_ok, count, 0)
-        if syncs.item(sz_screened.max() > ERRS_STABLE_MIN_SZ):
-            errs = errs_stable()
+    def errs_stable():
+        """Windows of giant segments from overlapped-block prefixes: each
+        range lies inside one (128+40)-element block, so the rounding of
+        every subtraction scales with the block's content."""
+        opref, blk, ov = scan.overlapped_cumsum(mom)
+        bw = blk + ov
+
+        def lrs(g0, g1, live):
+            g0c = clipk(g0)
+            g1c = clipk(g1)
+            j = torch.div(g1c, blk, rounding_mode="floor")
+            base = j * bw - j * blk + ov
+            hi = segs.take1(opref, base + g1c)
+            lo_pos = base + g0c - 1
+            lo = torch.where((g0c - 1 >= j * blk - ov)[..., None],
+                             segs.take1(opref, lo_pos.clamp_min(0)), 0.0)
+            return torch.where(live[..., None], hi - lo, 0.0)
+
+        a = pos - ksz
+        bp = pos + ksz
+        wrap_lo = a < 0
+        wrap_hi = bp >= sz_pt
+        p1a = start + a.clamp_min(0)
+        p1b = start + torch.minimum(bp, sz_pt - 1)
+        p2a = torch.where(wrap_lo, start + sz_pt + a, start)
+        p2b = torch.where(wrap_lo, start + sz_pt - 1, start + bp - sz_pt)
+        mwin = (lrs(p1a, p1b, fit_ok_pt)
+                + lrs(p2a, p2b, fit_ok_pt & (wrap_lo | wrap_hi)))
+        nwin = (2 * ksz + 1).to(f32)
+        return fit_line_f32(mwin, nwin)["err"]
+
+    errs = errs_stable() if stable else errs_fast()
+    errs = torch.where(fit_ok_pt, errs, 0.0)
+
+    # ---- 7-tap circular smoothing + peaks, boundary region repaired ---------
+    errs_raw = errs
+    smoothed = torch.zeros_like(errs)
+    for j in range(-3, 4):
+        smoothed = smoothed + math.exp(-j * j / 2.0) * torch.roll(
+            errs_raw, -j, dims=1)
+    nxt = torch.roll(smoothed, -1, dims=1)
+    prv = torch.roll(smoothed, 1, dims=1)
+    is_peak_lin = (smoothed > nxt) & (smoothed > prv)
+
+    fw = 8
+    pp = torch.cat([torch.arange(fw, dtype=i32, device=dev),
+                    torch.arange(-fw, 0, dtype=i32, device=dev)])
+    cnt3 = count[..., None]
+    pos_tab = torch.where(pp >= 0, pp, cnt3 + pp)                # (B,NSEG1,16)
+    in_seg = (pos_tab >= 0) & (pos_tab < cnt3)
+    gidx = clipk(start_tab[..., None] + pos_tab)
+    eraw = torch.where(in_seg, segs.take1(errs_raw, gidx.reshape(b, -1))
+                       .reshape(b, nseg1, 2 * fw), 0.0)
+
+    fpos = torch.cat([torch.arange(5, dtype=i32, device=dev),
+                      torch.arange(-5, 0, dtype=i32, device=dev)])
+    fpos_abs = torch.where(fpos >= 0, fpos, cnt3 + fpos)
+    # exact circular smoothing of fix slot s (signed position s for s < 5,
+    # s - 10 from the end otherwise): tap p+j sits at table slot (p+j) mod
+    # 16. Summed tap by tap in the order of the global smoothing above (the
+    # JAX package folds the taps into a (16, 10) matmul, whose summation
+    # order would differ between devices)
+    sm_fix = torch.zeros((b, nseg1, 10), dtype=f32, device=dev)
+    for j, taps in zip(range(-3, 4), tabs["taps"]):
+        sm_fix = sm_fix + math.exp(-j * j / 2.0) * eraw[:, :, taps]
+    pk_fix = (sm_fix > sm_fix[:, :, tabs["nxt_idx"]]) & \
+        (sm_fix > sm_fix[:, :, tabs["prv_idx"]])
+
+    fix_in = (fpos_abs >= 0) & (fpos_abs < cnt3) & (cnt3 >= 2 * fw)
+    fgidx_all = clipk(start_tab[..., None] + fpos_abs)
+    fgidx = torch.where(fix_in, fgidx_all, k).reshape(b, -1).to(torch.int64)
+    pgidx = torch.where(fix_in & tabs["pk_slot_ok"][None, None, :],
+                        fgidx_all, k).reshape(b, -1).to(torch.int64)
+    smoothed = F.pad(smoothed, (0, 1)).scatter(
+        1, fgidx, sm_fix.reshape(b, -1))[:, :k]
+    is_peak_lin = F.pad(is_peak_lin, (0, 1)).scatter(
+        1, pgidx, pk_fix.reshape(b, -1))[:, :k]
+
+    errs = torch.where(fit_ok_pt, smoothed, 0.0)
+    is_peak = fit_ok_pt & is_peak_lin
+
+    # ---- top-10 maxima per segment: stable sort by (segment, -error) --------
+    peak_seg = torch.where(is_peak, seg, nseg)
+    if cfg.use_pallas_sort:
+        # the JAX package's int formulation: the error's f32 bits order like
+        # the error for nonnegative errors, and pos as a third key
+        # reproduces the stable order (pos follows the slot within a
+        # segment, the primary key)
+        errbits = errs.view(torch.int32)
+        _, negb_s, ppos_s = sort_kernel.sort_tpu([peak_seg, -errbits, pos],
+                                                 num_keys=3)
+        perr_s = (-negb_s).view(torch.float32)
+    else:
+        order = torch.sort((peak_seg.to(torch.int64) << 32)
+                           | _float_sort_key(-errs), dim=1, stable=True)[1]
+        perr_s = torch.gather(errs, 1, order)
+        ppos_s = torch.gather(pos, 1, order)
+    pk_count = histogram(peak_seg, nseg1)
+    pkf = pk_count.to(f32)
+    pstart = (scan.cumsum_mxu(pkf) - pkf).to(i32)
+    r11 = torch.arange(MAX_NMAXIMA + 1, dtype=i32, device=dev)
+    win_idx = clipk(pstart[..., None] + r11)                # (B, NSEG1, 11)
+    src = torch.stack([ppos_s.to(f32), perr_s], dim=-1)
+    win = segs.take1(src, win_idx.reshape(b, -1)).reshape(
+        b, nseg1, MAX_NMAXIMA + 1, 2)
+    in_blk = r11[None, None, :] < pk_count[..., None]
+    werr = torch.where(in_blk, win[..., 1], -math.inf)
+    thresh = torch.where(pk_count > MAX_NMAXIMA, werr[..., MAX_NMAXIMA],
+                         -math.inf)
+    qual = in_blk[..., :MAX_NMAXIMA] & \
+        (werr[..., :MAX_NMAXIMA] > thresh[..., None])
+    nmax = qual.sum(-1)
+    mx = torch.where(qual, win[..., :MAX_NMAXIMA, 0].to(i32), _BIGI)
+    maxima = torch.sort(mx, dim=2)[0]
+    maxima = torch.where(
+        torch.arange(MAX_NMAXIMA, device=dev)[None, None, :]
+        < nmax[..., None], maxima, 0)
+    return {"pref": pref, "maxima": maxima, "nmax": nmax,
+            "seg_quad_ok": seg_ok & (nmax >= 4), "errs": errs,
+            "is_peak": is_peak}
+
+
+def fit_quads(cfg: QuadFitConfig, tabs: dict, count, start_tab, cx, cy,
+              pref, maxima, nmax, seg_quad_ok) -> dict:
+    """Stage 3, `quadfit.quads`: the 45 pair fits and 210 combos of each
+    segment's maxima, the best combo's corners, its checks, and the quads
+    to NQ slots by area."""
+    b, nseg1 = count.shape
+    k = pref.shape[1]
+    dev = count.device
+    f32 = torch.float32
+
+    def clipk(t):
+        return t.clamp(0, k - 1)
+
+    # ---- 45 pair fits + 210 combos ------------------------------------------
+    seg_sz = count
+
+    def pref_at_seg(position):
+        """(B, NSEG1, L) segment-relative position -> prefix (..., 6)."""
+        gidx = clipk(start_tab[..., None] + clipk(position))
+        g = segs.take1(pref, gidx.reshape(b, -1)).reshape(b, nseg1, -1, 6)
+        return torch.where((position >= 0)[..., None], g, 0.0)
+
+    pb = pref_at_seg(maxima)
+    pa = pref_at_seg(maxima - 1)
+    tot_seg = pref_at_seg((seg_sz - 1)[..., None])           # (B, NSEG1, 1, 6)
+
+    a_idx = tabs["pair_a"]
+    b_idx = tabs["pair_b"]
+    m_fwd = pb[:, :, b_idx, :] - pa[:, :, a_idx, :]          # (B,NSEG1,45,6)
+    n_fwd = (maxima[:, :, b_idx] - maxima[:, :, a_idx] + 1).to(f32)
+    m_rev = tot_seg - m_fwd + (pb - pa)[:, :, a_idx, :] + \
+        (pb - pa)[:, :, b_idx, :]
+    n_rev = seg_sz[..., None].to(f32) - n_fwd + 2.0
+    fit_fwd = fit_line_f32(m_fwd, n_fwd)
+    fit_rev = fit_line_f32(m_rev, n_rev)
+
+    cp = tabs["combo_pairs"]                                 # (210, 4)
+    mse01 = fit_fwd["mse"][:, :, cp[:, 0]]
+    mse12 = fit_fwd["mse"][:, :, cp[:, 1]]
+    mse23 = fit_fwd["mse"][:, :, cp[:, 2]]
+    mse30 = fit_rev["mse"][:, :, cp[:, 3]]
+    err_tot = (fit_fwd["err"][:, :, cp[:, 0]]
+               + fit_fwd["err"][:, :, cp[:, 1]]
+               + fit_fwd["err"][:, :, cp[:, 2]]
+               + fit_rev["err"][:, :, cp[:, 3]])
+    dot01_12 = (fit_fwd["nx"][:, :, cp[:, 0]] * fit_fwd["nx"][:, :, cp[:, 1]]
+                + fit_fwd["ny"][:, :, cp[:, 0]]
+                * fit_fwd["ny"][:, :, cp[:, 1]])
+    slots_ok = tabs["combo_last"][None, None, :] < nmax[..., None]
+    combo_ok = (slots_ok & (mse01 <= MAX_LINE_FIT_MSE)
+                & (mse12 <= MAX_LINE_FIT_MSE) & (mse23 <= MAX_LINE_FIT_MSE)
+                & (mse30 <= MAX_LINE_FIT_MSE)
+                & (torch.abs(dot01_12) <= COS_CRITICAL_RAD))
+    err_masked = torch.where(combo_ok, err_tot, math.inf)
+    best = torch.argmin(err_masked, dim=2)                       # (B, NSEG1)
+    best_err = torch.gather(err_masked, 2, best[..., None])[..., 0]
+    seg_quad_ok = seg_quad_ok & torch.isfinite(best_err) & \
+        (best_err / seg_sz.clamp_min(1) <= MAX_LINE_FIT_MSE)
+
+    # ---- corners from the best combo's 4 lines ------------------------------
+    def line_params(d, pair_col):
+        pidx = cp[:, pair_col][best]                             # (B, NSEG1)
+        return {kk: torch.gather(d[kk], 2, pidx[..., None])[..., 0]
+                for kk in ("ex", "ey", "nx", "ny")}
+
+    lines = [line_params(fit_fwd, 0), line_params(fit_fwd, 1),
+             line_params(fit_fwd, 2), line_params(fit_rev, 3)]
+    det_ok = torch.ones((b, nseg1), dtype=torch.bool, device=dev)
+    ccx_seg = cx * 0.5 + 0.5
+    ccy_seg = cy * 0.5 + 0.5
+    corner_xy = [None] * 4
+    for i in range(4):
+        li, lj = lines[i], lines[(i + 1) & 3]
+        a00, a01 = li["ny"], -lj["ny"]
+        a10, a11 = -li["nx"], lj["nx"]
+        b0 = -li["ex"] + lj["ex"]
+        b1 = -li["ey"] + lj["ey"]
+        det = a00 * a11 - a10 * a01
+        det_ok = det_ok & (torch.abs(det) >= 1e-3)
+        l0v = (a11 * b0 - a01 * b1) / torch.where(det == 0, 1e-12, det)
+        px_c = li["ex"] + l0v * a00 + ccx_seg
+        py_c = li["ey"] + l0v * a10 + ccy_seg
+        corner_xy[(i + 1) & 3] = torch.stack([px_c, py_c], dim=-1)
+    corners = torch.stack(corner_xy, dim=2)                  # (B,NSEG1,4,2)
+    seg_quad_ok = seg_quad_ok & det_ok
+
+    def tri(p0, p1, p2):
+        return 0.5 * torch.abs((p1[..., 0] - p0[..., 0])
+                               * (p2[..., 1] - p0[..., 1])
+                               - (p2[..., 0] - p0[..., 0])
+                               * (p1[..., 1] - p0[..., 1]))
+
+    area = tri(corners[:, :, 0], corners[:, :, 1], corners[:, :, 2]) + \
+        tri(corners[:, :, 2], corners[:, :, 3], corners[:, :, 0])
+    seg_quad_ok = seg_quad_ok & \
+        (area >= 0.95 * cfg.tag_width * cfg.tag_width)
+    for i in range(4):
+        p0 = corners[:, :, i]
+        p1 = corners[:, :, (i + 1) & 3]
+        p2 = corners[:, :, (i + 2) & 3]
+        d1 = p1 - p0
+        d2 = p2 - p1
+        denom = torch.sqrt((d1 * d1).sum(-1) * (d2 * d2).sum(-1))
+        cosdt = (d1 * d2).sum(-1) / torch.where(denom == 0, 1e-12, denom)
+        seg_quad_ok = seg_quad_ok \
+            & (torch.abs(cosdt) <= COS_CRITICAL_RAD) \
+            & (d1[..., 0] * d2[..., 1] >= d1[..., 1] * d2[..., 0])
+
+    # ---- quads to NQ slots, largest area first ------------------------------
+    # lax.top_k breaks ties by the lower index: a stable descending sort
+    nq = cfg.max_quads
+    prio = torch.where(seg_quad_ok, area, -1.0)
+    top_prio, top_idx = torch.sort(prio, dim=1, descending=True, stable=True)
+    top_prio, top_idx = top_prio[:, :nq], top_idx[:, :nq]
+    out_c = torch.gather(corners, 1,
+                         top_idx[..., None, None].expand(b, nq, 4, 2))
+    quad_valid = top_prio > 0
+    return {"corners": out_c, "quad_valid": quad_valid,
+            "n_quads": quad_valid.sum(dim=1)}
+
+
+class _Graph:
+    """One captured stage: its CUDA graph, the tensors it reads (bound at
+    capture), the tensors it writes, the launches its kernel wrappers made
+    while it was captured, and the tables it reads."""
+    __slots__ = ("graph", "inputs", "outputs", "launches", "tabs")
+
+    def __init__(self, graph, inputs, outputs, launches, tabs):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+        self.tabs = tabs
+
+
+class GraphRunner:
+    """cluster_and_fit's three stages on a CUDA device, each replayed as a
+    CUDA graph once its shapes recur, with outputs bit-identical to the
+    eager stages.
+
+    A stage's key is what the code observes: the device, the current
+    stream, B and K, decim's shape, the dtypes, the config and, for the
+    lines stage, the branch the host read picked. The first run at a key
+    is eager, and is the warm-up a capture needs (kernels loaded, the K4
+    and K9 launchers' one-time device checks made); the second captures
+    the stage on a side stream and replays it; later runs replay. So a
+    shape seen once never pays for a capture; a key whose capture fails
+    runs eagerly from then on, with a warning. A graph reads its inputs
+    where the previous stage's graph wrote them, else from buffers of its
+    own that each replay first copies the inputs into; it writes into a
+    memory pool of its own, and the call returns copies, so a later replay
+    changes nothing a caller holds. A replay adds to _build's launch
+    counters what its wrappers added while it was captured.
+
+    `runs` counts cluster_and_fit calls by how they ran (RUNS): eager
+    when any stage ran eagerly, captured when any was captured, replayed
+    when all three replayed; so does the calling thread's open call
+    record (utils/tracing.RECORDER). A runner serves one thread at a time:
+    a TorchDetector holds one, other callers get one per thread."""
+
+    RUNS = ("eager", "captured", "replayed")
+
+    def __init__(self):
+        self._graphs: dict = {}
+        self._seen: set = set()
+        self._eager: set = set()     # keys whose capture failed
+        self._static: dict = {}      # id -> tensor, every graph's outputs
+        self._side: dict = {}        # device -> capture stream
+        self.runs = dict.fromkeys(self.RUNS, 0)
+
+    def run(self, pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
+            syncs) -> dict:
+        key, pack2 = pts["key"], pts["pack2"]
+        dev = decim.device
+        stream = _stream_id(dev)
+        base = (str(dev), stream, tuple(key.shape), key.dtype, pack2.dtype,
+                tuple(decim.shape), decim.dtype, cfg)
+        on = (dev, stream)
+        how = []
+        with torch.inference_mode():
+            tabs = constant_tables(dev, syncs)
+            with Span("quadfit.sort"):
+                s = self._stage(
+                    ("sort",) + base, on, how, tabs,
+                    functools.partial(fit_sort, cfg, tuple(decim.shape)),
+                    {"key": key, "pack2": pack2})
+            with Span("quadfit.lines"):
+                stable = syncs.item(s["stable"])
+                ln = self._stage(
+                    ("lines", stable) + base, on, how, tabs,
+                    functools.partial(fit_lines, cfg, tabs, stable),
+                    {"decim": decim, **_take(s, _LINES_IN)})
+            with Span("quadfit.quads"):
+                q = self._stage(
+                    ("quads",) + base, on, how, tabs,
+                    functools.partial(fit_quads, cfg, tabs),
+                    {**_take(s, _QUADS_IN_S), **_take(ln, _QUADS_IN_L)})
+                out = _result(s, ln, q, self._copy)
+        i = min(how)
+        self.runs[self.RUNS[i]] += 1
+        tracing.RECORDER.quadfit_run(i)
+        return out
+
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        return t.clone() if self._static.get(id(t)) is t else t
+
+    def _stage(self, key, on: tuple, how: list, tabs: dict, fn,
+               inputs: dict) -> dict:
+        g = self._graphs.get(key)
+        if g is None:
+            if key not in self._seen or key in self._eager:
+                self._seen.add(key)
+                how.append(0)
+                return fn(**inputs)
+            try:
+                g = self._graphs[key] = self._capture(fn, inputs, tabs)
+            except RuntimeError as e:
+                self._eager.add(key)
+                warnings.warn(f"cluster_and_fit: the {key[0]} stage's "
+                              f"capture failed ({e}); it runs eagerly")
+                how.append(0)
+                return fn(**inputs)
+            how.append(1)
         else:
-            errs = errs_fast()
-        errs = torch.where(fit_ok_pt, errs, 0.0)
+            for name, t in g.inputs.items():
+                if inputs[name] is not t:
+                    t.copy_(inputs[name])
+            how.append(2)
+        _replay(g.graph, *on)
+        _build.replayed(g.launches)
+        return g.outputs
 
-        # ---- 7-tap circular smoothing + peaks, boundary region repaired -----
-        errs_raw = errs
-        smoothed = torch.zeros_like(errs)
-        for j in range(-3, 4):
-            smoothed = smoothed + math.exp(-j * j / 2.0) * torch.roll(
-                errs_raw, -j, dims=1)
-        nxt = torch.roll(smoothed, -1, dims=1)
-        prv = torch.roll(smoothed, 1, dims=1)
-        is_peak_lin = (smoothed > nxt) & (smoothed > prv)
+    def _capture(self, fn, inputs: dict, tabs: dict) -> _Graph:
+        """The stage bound to its inputs (the previous graph's outputs as
+        they are, other inputs copied to buffers of its own) and
+        captured."""
+        bound = {n: t if self._static.get(id(t)) is t else t.clone()
+                 for n, t in inputs.items()}
+        with _build.recording() as launches:
+            graph, out = self._record(fn, bound)
+        for t in out.values():
+            self._static[id(t)] = t
+        return _Graph(graph, bound, out, launches, tabs)
 
-        fw = 8
-        pp = torch.cat([torch.arange(fw, dtype=i32, device=dev),
-                        torch.arange(-fw, 0, dtype=i32, device=dev)])
-        cnt3 = count[..., None]
-        pos_tab = torch.where(pp >= 0, pp, cnt3 + pp)            # (B,NSEG1,16)
-        in_seg = (pos_tab >= 0) & (pos_tab < cnt3)
-        gidx = clipk(start_tab[..., None] + pos_tab)
-        eraw = torch.where(in_seg, segs.take1(errs_raw, gidx.reshape(b, -1))
-                           .reshape(b, nseg1, 2 * fw), 0.0)
+    def _record(self, fn, bound: dict) -> tuple:
+        """(graph, outputs): fn(**bound) captured on the device's side
+        stream, with no device synchronisation; only the calling thread
+        may make no unsafe CUDA call meanwhile, so other threads' work on
+        the device goes on. One capture at a time in the process, and no
+        garbage collection during one (it would destroy the graphs of
+        detectors that died in reference cycles)."""
+        dev = next(iter(bound.values())).device
+        side = self._side.get(dev)
+        if side is None:
+            side = self._side[dev] = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE, torch.cuda.stream(side):
+            side.wait_stream(cur)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = fn(**bound)
+                finally:
+                    graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+        cur.wait_stream(side)
+        return graph, out
 
-        fpos = torch.cat([torch.arange(5, dtype=i32, device=dev),
-                          torch.arange(-5, 0, dtype=i32, device=dev)])
-        fpos_abs = torch.where(fpos >= 0, fpos, cnt3 + fpos)
-        # exact circular smoothing of fix slot s (signed position s for s < 5,
-        # s - 10 from the end otherwise): tap p+j sits at table slot
-        # (p+j) mod 16. Summed tap by tap in the order of the global smoothing
-        # above (the JAX package folds the taps into a (16, 10) matmul, whose
-        # summation order would differ between devices)
-        sm_fix = torch.zeros((b, nseg1, 10), dtype=f32, device=dev)
-        for j in range(-3, 4):
-            taps = syncs.upload([((s if s < 5 else s - 10) + j) % (2 * fw)
-                                 for s in range(10)], dev)
-            sm_fix = sm_fix + math.exp(-j * j / 2.0) * eraw[:, :, taps]
-        nxt_idx = syncs.upload([1, 2, 3, 4, 0, 6, 7, 8, 9, 0], dev)
-        prv_idx = syncs.upload([9, 0, 1, 2, 0, 4, 5, 6, 7, 8], dev)
-        pk_fix = (sm_fix > sm_fix[:, :, nxt_idx]) & \
-            (sm_fix > sm_fix[:, :, prv_idx])
-        pk_slot_ok = syncs.upload(
-            [True, True, True, True, False, False, True, True, True, True],
-            dev)
 
-        fix_in = (fpos_abs >= 0) & (fpos_abs < cnt3) & (cnt3 >= 2 * fw)
-        fgidx_all = clipk(start_tab[..., None] + fpos_abs)
-        fgidx = torch.where(fix_in, fgidx_all, k).reshape(b, -1) \
-            .to(torch.int64)
-        pgidx = torch.where(fix_in & pk_slot_ok[None, None, :], fgidx_all,
-                            k).reshape(b, -1).to(torch.int64)
-        smoothed = F.pad(smoothed, (0, 1)).scatter(
-            1, fgidx, sm_fix.reshape(b, -1))[:, :k]
-        is_peak_lin = F.pad(is_peak_lin, (0, 1)).scatter(
-            1, pgidx, pk_fix.reshape(b, -1))[:, :k]
+_LAUNCH: list = []
 
-        errs = torch.where(fit_ok_pt, smoothed, 0.0)
-        is_peak = fit_ok_pt & is_peak_lin
 
-        # ---- top-10 maxima per segment: stable sort by (segment, -error) ----
-        peak_seg = torch.where(is_peak, seg, nseg)
-        if cfg.use_pallas_sort:
-            # the JAX package's int formulation: the error's f32 bits order
-            # like the error for nonnegative errors, and pos as a third key
-            # reproduces the stable order (pos follows the slot within a
-            # segment, the primary key)
-            errbits = errs.view(torch.int32)
-            _, negb_s, ppos_s = sort_kernel.sort_tpu([peak_seg, -errbits, pos],
-                                                     num_keys=3)
-            perr_s = (-negb_s).view(torch.float32)
-        else:
-            order = torch.sort((peak_seg.to(torch.int64) << 32)
-                               | _float_sort_key(-errs), dim=1, stable=True)[1]
-            perr_s = torch.gather(errs, 1, order)
-            ppos_s = torch.gather(pos, 1, order)
-        pk_count = histogram(peak_seg, nseg1)
-        pkf = pk_count.to(f32)
-        pstart = (scan.cumsum_mxu(pkf) - pkf).to(i32)
-        r11 = torch.arange(MAX_NMAXIMA + 1, dtype=i32, device=dev)
-        win_idx = clipk(pstart[..., None] + r11)            # (B, NSEG1, 11)
-        src = torch.stack([ppos_s.to(f32), perr_s], dim=-1)
-        win = segs.take1(src, win_idx.reshape(b, -1)).reshape(
-            b, nseg1, MAX_NMAXIMA + 1, 2)
-        in_blk = r11[None, None, :] < pk_count[..., None]
-        werr = torch.where(in_blk, win[..., 1], -math.inf)
-        thresh = torch.where(pk_count > MAX_NMAXIMA, werr[..., MAX_NMAXIMA],
-                             -math.inf)
-        qual = in_blk[..., :MAX_NMAXIMA] & \
-            (werr[..., :MAX_NMAXIMA] > thresh[..., None])
-        nmax = qual.sum(-1)
-        mx = torch.where(qual, win[..., :MAX_NMAXIMA, 0].to(i32), _BIGI)
-        maxima = torch.sort(mx, dim=2)[0]
-        maxima = torch.where(
-            torch.arange(MAX_NMAXIMA, device=dev)[None, None, :]
-            < nmax[..., None], maxima, 0)
-        seg_quad_ok = seg_ok & (nmax >= 4)
+def _graph_launch():
+    """cudaGraphLaunch of the CUDA runtime that torch loaded, called
+    through ctypes.PyDLL, so the call holds the GIL; None where no shared
+    runtime is mapped into the process."""
+    if not _LAUNCH:
+        with open("/proc/self/maps") as maps:
+            paths = [line.split()[-1] for line in maps
+                     if "/libcudart" in line]
+        fn = None
+        if paths:
+            fn = ctypes.PyDLL(paths[0]).cudaGraphLaunch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LAUNCH.append(fn)
+    return _LAUNCH[0]
 
-    with Span("quadfit.quads"):
-        # ---- 45 pair fits + 210 combos --------------------------------------
-        seg_sz = count
 
-        def pref_at_seg(position):
-            """(B, NSEG1, L) segment-relative position -> prefix (..., 6)."""
-            gidx = clipk(start_tab[..., None] + clipk(position))
-            g = segs.take1(pref, gidx.reshape(b, -1)).reshape(b, nseg1, -1, 6)
-            return torch.where((position >= 0)[..., None], g, 0.0)
+def _replay(graph, dev: torch.device, stream: int) -> None:
+    """graph.replay() on `stream`, with the GIL held through the launch.
+    CUDAGraph.replay releases the GIL around cudaGraphLaunch, so a
+    torch.profiler started or stopped on another thread (both hold the
+    GIL) overlapped the launch of a whole graph: on an H100 that hung the
+    process, or aborted it at exit, in about one traced benchmark run in
+    four. The graphs hold no random-number state, so the launch is all
+    that replay() does for them."""
+    launch = _graph_launch() if dev.type == "cuda" else None
+    if launch is None or not hasattr(graph, "raw_cuda_graph_exec"):
+        graph.replay()
+        return
+    if torch.cuda.current_device() == dev.index:
+        rc = launch(graph.raw_cuda_graph_exec(), stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = launch(graph.raw_cuda_graph_exec(), stream)
+    if rc != 0:
+        raise RuntimeError(f"cudaGraphLaunch failed with error {rc}")
 
-        pb = pref_at_seg(maxima)
-        pa = pref_at_seg(maxima - 1)
-        tot_seg = pref_at_seg((seg_sz - 1)[..., None])       # (B, NSEG1, 1, 6)
 
-        a_idx = syncs.upload(_PAIR_A, dev)
-        b_idx = syncs.upload(_PAIR_B, dev)
-        m_fwd = pb[:, :, b_idx, :] - pa[:, :, a_idx, :]      # (B,NSEG1,45,6)
-        n_fwd = (maxima[:, :, b_idx] - maxima[:, :, a_idx] + 1).to(f32)
-        m_rev = tot_seg - m_fwd + (pb - pa)[:, :, a_idx, :] + \
-            (pb - pa)[:, :, b_idx, :]
-        n_rev = seg_sz[..., None].to(f32) - n_fwd + 2.0
-        fit_fwd = fit_line_f32(m_fwd, n_fwd)
-        fit_rev = fit_line_f32(m_rev, n_rev)
+def _stream_id(dev: torch.device) -> int:
+    """The device's current stream (0 off CUDA, where only tests run the
+    runner)."""
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.current_stream(dev).cuda_stream
 
-        cp = syncs.upload(_COMBO_PAIRS, dev)            # (210, 4)
-        mse01 = fit_fwd["mse"][:, :, cp[:, 0]]
-        mse12 = fit_fwd["mse"][:, :, cp[:, 1]]
-        mse23 = fit_fwd["mse"][:, :, cp[:, 2]]
-        mse30 = fit_rev["mse"][:, :, cp[:, 3]]
-        err_tot = (fit_fwd["err"][:, :, cp[:, 0]]
-                   + fit_fwd["err"][:, :, cp[:, 1]]
-                   + fit_fwd["err"][:, :, cp[:, 2]]
-                   + fit_rev["err"][:, :, cp[:, 3]])
-        dot01_12 = (fit_fwd["nx"][:, :, cp[:, 0]]
-                    * fit_fwd["nx"][:, :, cp[:, 1]]
-                    + fit_fwd["ny"][:, :, cp[:, 0]]
-                    * fit_fwd["ny"][:, :, cp[:, 1]])
-        slots_ok = syncs.upload(_COMBOS[:, 3], dev)[None, None, :] \
-            < nmax[..., None]
-        combo_ok = (slots_ok & (mse01 <= MAX_LINE_FIT_MSE)
-                    & (mse12 <= MAX_LINE_FIT_MSE) & (mse23 <= MAX_LINE_FIT_MSE)
-                    & (mse30 <= MAX_LINE_FIT_MSE)
-                    & (torch.abs(dot01_12) <= COS_CRITICAL_RAD))
-        err_masked = torch.where(combo_ok, err_tot, math.inf)
-        best = torch.argmin(err_masked, dim=2)                   # (B, NSEG1)
-        best_err = torch.gather(err_masked, 2, best[..., None])[..., 0]
-        seg_quad_ok = seg_quad_ok & torch.isfinite(best_err) & \
-            (best_err / seg_sz.clamp_min(1) <= MAX_LINE_FIT_MSE)
 
-        # ---- corners from the best combo's 4 lines --------------------------
-        def line_params(d, pair_col):
-            pidx = cp[:, pair_col][best]                         # (B, NSEG1)
-            return {kk: torch.gather(d[kk], 2, pidx[..., None])[..., 0]
-                    for kk in ("ex", "ey", "nx", "ny")}
+_LOCAL = threading.local()
+_CAPTURE = threading.Lock()
 
-        lines = [line_params(fit_fwd, 0), line_params(fit_fwd, 1),
-                 line_params(fit_fwd, 2), line_params(fit_rev, 3)]
-        det_ok = torch.ones((b, nseg1), dtype=torch.bool, device=dev)
-        ccx_seg = cx * 0.5 + 0.5
-        ccy_seg = cy * 0.5 + 0.5
-        corner_xy = [None] * 4
-        for i in range(4):
-            li, lj = lines[i], lines[(i + 1) & 3]
-            a00, a01 = li["ny"], -lj["ny"]
-            a10, a11 = -li["nx"], lj["nx"]
-            b0 = -li["ex"] + lj["ex"]
-            b1 = -li["ey"] + lj["ey"]
-            det = a00 * a11 - a10 * a01
-            det_ok = det_ok & (torch.abs(det) >= 1e-3)
-            l0v = (a11 * b0 - a01 * b1) / torch.where(det == 0, 1e-12, det)
-            px_c = li["ex"] + l0v * a00 + ccx_seg
-            py_c = li["ey"] + l0v * a10 + ccy_seg
-            corner_xy[(i + 1) & 3] = torch.stack([px_c, py_c], dim=-1)
-        corners = torch.stack(corner_xy, dim=2)              # (B,NSEG1,4,2)
-        seg_quad_ok = seg_quad_ok & det_ok
 
-        def tri(p0, p1, p2):
-            return 0.5 * torch.abs((p1[..., 0] - p0[..., 0])
-                                   * (p2[..., 1] - p0[..., 1])
-                                   - (p2[..., 0] - p0[..., 0])
-                                   * (p1[..., 1] - p0[..., 1]))
-
-        area = tri(corners[:, :, 0], corners[:, :, 1], corners[:, :, 2]) + \
-            tri(corners[:, :, 2], corners[:, :, 3], corners[:, :, 0])
-        seg_quad_ok = seg_quad_ok & \
-            (area >= 0.95 * cfg.tag_width * cfg.tag_width)
-        for i in range(4):
-            p0 = corners[:, :, i]
-            p1 = corners[:, :, (i + 1) & 3]
-            p2 = corners[:, :, (i + 2) & 3]
-            d1 = p1 - p0
-            d2 = p2 - p1
-            denom = torch.sqrt((d1 * d1).sum(-1) * (d2 * d2).sum(-1))
-            cosdt = (d1 * d2).sum(-1) / torch.where(denom == 0, 1e-12, denom)
-            seg_quad_ok = seg_quad_ok \
-                & (torch.abs(cosdt) <= COS_CRITICAL_RAD) \
-                & (d1[..., 0] * d2[..., 1] >= d1[..., 1] * d2[..., 0])
-
-        # ---- quads to NQ slots, largest area first --------------------------
-        # lax.top_k breaks ties by the lower index: a stable descending sort
-        nq = cfg.max_quads
-        prio = torch.where(seg_quad_ok, area, -1.0)
-        top_prio, top_idx = torch.sort(prio, dim=1, descending=True,
-                                       stable=True)
-        top_prio, top_idx = top_prio[:, :nq], top_idx[:, :nq]
-        out_c = torch.gather(corners, 1,
-                             top_idx[..., None, None].expand(b, nq, 4, 2))
-        quad_valid = top_prio > 0
-        return {
-            "corners": out_c,
-            "quad_valid": quad_valid,
-            "n_quads": quad_valid.sum(dim=1),
-            "seg": seg, "pos": pos, "errs": errs, "is_peak": is_peak,
-            "maxima": maxima, "nmax": nmax, "seg_ok": seg_ok, "count": count,
-        }
+def _thread_runner() -> GraphRunner:
+    runner = getattr(_LOCAL, "runner", None)
+    if runner is None:
+        runner = _LOCAL.runner = GraphRunner()
+    return runner

@@ -16,7 +16,9 @@ every kernel (cuda_frc971.cu:5-26). Here:
     `decode.screen`, `decode.refine`, `decode.tail`. The record's `syncs`
     and `sync_ns` are what the call's device.HostSyncs counted and timed
     over it: each `.item()` read and constant-table upload, and the host
-    ns spent inside them. Spans are stamped
+    ns spent inside them; its `quadfit_eager`, `quadfit_captured` and
+    `quadfit_replayed` count how its cluster_and_fit calls on a CUDA
+    device ran (ops/quadfit.GraphRunner). Spans are stamped
     with time.time_ns(), the clock of torch.profiler's events, so device
     operations and idle gaps in a profile can be put down to the span open
     at their runtime call. No span synchronises, records an event or reads
@@ -50,15 +52,18 @@ import torch
 # the spans a detector call records, in pipeline order
 SPANS = ("detector", "quadfit", "quadfit.sort", "quadfit.lines",
          "quadfit.quads", "decode.screen", "decode.refine", "decode.tail")
+# how a cluster_and_fit call on a CUDA device ran (ops/quadfit.GraphRunner)
+QUADFIT_RUNS = ("eager", "captured", "replayed")
 SPAN_SLOTS = 1 << 18
 CALL_SLOTS = 1 << 16
 
 
 class _Open:
     """The calling thread's open call: its sequence number, start (epoch
-    ns), its HostSyncs' count and ns at the start, and the sequence number
-    of its first span."""
-    __slots__ = ("seq", "t0", "syncs", "sync_ns", "span_lo")
+    ns), its HostSyncs' count and ns at the start, the sequence number of
+    its first span, and its cluster_and_fit runs on a CUDA device by how
+    they ran (QUADFIT_RUNS)."""
+    __slots__ = ("seq", "t0", "syncs", "sync_ns", "span_lo", "quadfit")
 
     def __init__(self, seq: int, t0: int, syncs):
         self.seq = seq
@@ -66,6 +71,7 @@ class _Open:
         self.syncs = syncs.count
         self.sync_ns = syncs.ns
         self.span_lo = -1
+        self.quadfit = [0] * len(QUADFIT_RUNS)
 
 
 def _ring(columns: int, slots: int) -> list:
@@ -77,11 +83,11 @@ class Recorder:
     """Spans and call records in two rings allocated up front (int64
     columns; a record overwrites the oldest once a ring is full). A span
     row: its sequence number, name id, call and start and end (epoch ns);
-    a call row: its sequence number, start, end, thread, syncs, sync_ns
-    and first span. The open call is per thread, so worker threads (as
-    parallel/mesh.py runs them, each with a detector of its own) record
-    calls of their own. `enabled = False` turns every span and counter
-    into one attribute test."""
+    a call row: its sequence number, start, end, thread, syncs, sync_ns,
+    first span and its cluster_and_fit runs by QUADFIT_RUNS. The open call
+    is per thread, so worker threads (as parallel/mesh.py runs them, each
+    with a detector of its own) record calls of their own. `enabled =
+    False` turns every span and counter into one attribute test."""
 
     def __init__(self, span_slots: int = SPAN_SLOTS,
                  call_slots: int = CALL_SLOTS):
@@ -90,7 +96,7 @@ class Recorder:
                 raise ValueError(f"ring size {n} is not a power of two")
         self.enabled = True
         self._spans = _ring(5, span_slots)
-        self._calls = _ring(7, call_slots)
+        self._calls = _ring(7 + len(QUADFIT_RUNS), call_slots)
         self._span_seq = itertools.count()
         self._call_seq = itertools.count()
         self._ids: dict = {}
@@ -122,6 +128,13 @@ class Recorder:
         s1[j] = t1
         seq[j] = i
 
+    def quadfit_run(self, how: int) -> None:
+        """Count a cluster_and_fit call on a CUDA device in the calling
+        thread's open call, as QUADFIT_RUNS[how]."""
+        o = getattr(self._local, "open", None)
+        if o is not None:
+            o.quadfit[how] += 1
+
     def _begin(self, syncs) -> _Open:
         o = _Open(next(self._call_seq), time.time_ns(), syncs)
         self._local.open = o
@@ -132,7 +145,7 @@ class Recorder:
         self._span("detector", o.t0, t1)
         self._local.open = None
         self._local.last_ns = t1 - o.t0
-        seq, c0, c1, thread, n_syncs, sync_ns, lo = self._calls
+        seq, c0, c1, thread, n_syncs, sync_ns, lo, *runs = self._calls
         j = o.seq & (len(seq) - 1)
         seq[j] = -1
         c0[j] = o.t0
@@ -141,6 +154,8 @@ class Recorder:
         n_syncs[j] = syncs.count - o.syncs
         sync_ns[j] = syncs.ns - o.sync_ns
         lo[j] = o.span_lo
+        for col, n in zip(runs, o.quadfit):
+            col[j] = n
         seq[j] = o.seq
 
     def take_last_ns(self) -> int | None:
@@ -151,9 +166,11 @@ class Recorder:
     def calls(self, since_ns: int = 0) -> list:
         """The call records the ring still holds that started at or after
         `since_ns`, oldest first, each a dict: t0_ns, t1_ns, thread, syncs,
-        sync_ns and spans, {name: [(t0_ns, t1_ns), ...]} of the spans
-        recorded inside the call (`detector` among them), or None where
-        the span ring no longer holds them all."""
+        sync_ns, quadfit_eager, quadfit_captured, quadfit_replayed (its
+        cluster_and_fit calls on a CUDA device by QUADFIT_RUNS) and spans,
+        {name: [(t0_ns, t1_ns), ...]} of the spans recorded inside the
+        call (`detector` among them), or None where the span ring no
+        longer holds them all."""
         c = np.stack([np.frombuffer(a, np.int64) for a in self._calls])
         s = np.stack([np.frombuffer(a, np.int64) for a in self._spans])
         names = list(self._names)
@@ -169,10 +186,12 @@ class Recorder:
                 by_call.setdefault(call, {}).setdefault(
                     names[name], []).append((t0, t1))
         out = []
-        for seq, t0, t1, thread, syncs, sync_ns, lo in c.T.tolist():
+        for seq, t0, t1, thread, syncs, sync_ns, lo, *runs in c.T.tolist():
             spans = by_call.get(seq) if 0 <= lo and oldest <= lo else None
             out.append({"t0_ns": t0, "t1_ns": t1, "thread": thread,
                         "syncs": syncs, "sync_ns": sync_ns,
+                        **{f"quadfit_{k}": n
+                           for k, n in zip(QUADFIT_RUNS, runs)},
                         "spans": spans})
         return out
 
@@ -269,7 +288,7 @@ def _stages(det):
 
     def s_quadfit(gray, st):
         return quadfit.cluster_and_fit(st["pts"], st["decimated"], qcfg,
-                                       syncs)
+                                       syncs, det._quadfit_graphs)
 
     def s_refine(gray, st):
         c = dec.adjust_pixel_centers(st["corners"])

@@ -100,9 +100,12 @@ def test_config_from_jax_drops_only_backend_switches():
                for k, v in d.items() if k in kept)
 
 
-def test_host_api_and_packing(frames):
+def test_host_api_and_packing(frames, monkeypatch):
+    from ros_vision_tpu_torch.ops import quadfit as tqf
     g, _ = frames
     det = TorchDetector(device="cpu", width=W, height=H, **INTR)
+    # cluster_and_fit's tables, as on a device's first call
+    monkeypatch.setattr(tqf, "_TABLES", {})
     s0 = det.host_syncs.count
     reads = []
     item = det.host_syncs.item
@@ -114,9 +117,12 @@ def test_host_api_and_packing(frames):
     assert det._active_points == det.config.max_points
     assert len(reads) == 3
     # the count also holds the constant tables' uploads: 1 of the plain
-    # boundary compaction, 14 of cluster_and_fit, 6 of each decode, 1 of
-    # the tail and 2 of the plain pose
+    # boundary compaction, 14 of cluster_and_fit (a device's first call
+    # only), 6 of each decode, 1 of the tail and 2 of the plain pose
     assert det.host_syncs.count - s0 == 3 + 30
+    s1 = det.host_syncs.count
+    det.detect_raw(g)
+    assert len(reads) == 6 and det.host_syncs.count - s1 == 3 + 16
     del det.host_syncs.item
     packed = det.detect_raw_packed(g)
     assert tuple(packed.shape) == (2, det.config.max_quads, 36)

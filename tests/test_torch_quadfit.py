@@ -10,6 +10,8 @@ CPU and the card agree), so they are held to the f64 truth within the
 rounding bound of a 512-term f32 sum. Tag corners from cluster_and_fit on
 clean renders are held to 2e-3 decimated px of JAX: the line fits use
 atan2/cos/sin, whose last bit differs between XLA and PyTorch."""
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -217,17 +219,220 @@ def _tag_quads(q, b: int) -> np.ndarray:
     return c[area >= 100]
 
 
-def test_cluster_and_fit_counts_one_host_read(clean_points):
+def test_cluster_and_fit_counts_one_host_read(clean_points, monkeypatch):
+    """A device's first call uploads the 14 constant tables; a second one
+    uploads nothing, and its one host sync is the windowed-error read."""
     from ros_vision_tpu_torch.device import HostSyncs
     pts, decim = clean_points
-    syncs = HostSyncs()
-    reads = []
-    item = syncs.item
-    syncs.item = lambda x: reads.append(x) or item(x)
-    tqf.cluster_and_fit({k: t(v) for k, v in pts.items()}, t(decim),
-                        tqf.QuadFitConfig(max_points=4096, max_segments=256,
-                                          max_quads=16), syncs)
-    assert len(reads) == 1
-    # the count also holds the constant tables' 14 uploads
-    assert syncs.count == 15
+    cfg = tqf.QuadFitConfig(max_points=4096, max_segments=256, max_quads=16)
+    monkeypatch.setattr(tqf, "_TABLES", {})
+    counts = []
+    for _ in range(2):
+        syncs = HostSyncs()
+        reads, uploads = [], []
+        item, upload = syncs.item, syncs.upload
+        syncs.item = lambda x: reads.append(x) or item(x)
+        syncs.upload = lambda *a: uploads.append(a) or upload(*a)
+        tqf.cluster_and_fit({k: t(v) for k, v in pts.items()}, t(decim),
+                            cfg, syncs)
+        assert len(reads) == 1
+        counts.append((len(uploads), syncs.count))
+    assert counts == [(14, 15), (0, 1)]
     assert torch.get_num_threads() == 1
+
+
+def test_constant_tables_equal_what_as_tensor_gives(monkeypatch):
+    from ros_vision_tpu_torch.device import HostSyncs
+    monkeypatch.setattr(tqf, "_TABLES", {})
+    tabs = tqf.constant_tables(torch.device("cpu"), HostSyncs())
+    assert tqf.constant_tables(torch.device("cpu"), HostSyncs()) is tabs
+    want = {"taps": [torch.as_tensor([((s if s < 5 else s - 10) + j) % 16
+                                      for s in range(10)])
+                     for j in range(-3, 4)],
+            "nxt_idx": torch.as_tensor([1, 2, 3, 4, 0, 6, 7, 8, 9, 0]),
+            "prv_idx": torch.as_tensor([9, 0, 1, 2, 0, 4, 5, 6, 7, 8]),
+            "pk_slot_ok": torch.as_tensor([True] * 4 + [False] * 2
+                                          + [True] * 4),
+            "pair_a": torch.as_tensor(tqf._PAIR_A),
+            "pair_b": torch.as_tensor(tqf._PAIR_B),
+            "combo_pairs": torch.as_tensor(tqf._COMBO_PAIRS),
+            "combo_last": torch.as_tensor(tqf._COMBOS[:, 3])}
+    assert set(tabs) == set(want)
+    for name, w in want.items():
+        for got, ww in zip(*([tabs[name], w] if name == "taps"
+                             else [[tabs[name]], [w]])):
+            assert got.dtype == ww.dtype, name
+            assert torch.equal(got, ww), name
+    assert len(tabs["taps"]) == 7
+
+
+# sha256 (first 16 hex digits) over the sorted keys, dtypes and bytes of
+# cluster_and_fit's outputs on clean_points, computed with the function
+# before it was split into fit_sort, fit_lines and fit_quads (the JAX
+# package's inputs, one torch thread)
+PRESPLIT = {("fast", False): "5eb8a97cecccb28a",
+            ("fast", True): "f623ba3a1712906d",
+            ("stable", False): "ce8c07611a376918",
+            ("stable", True): "ce8c07611a376918"}
+
+
+def _digest(out: dict) -> str:
+    h = hashlib.sha256()
+    for k in sorted(out):
+        v = out[k].contiguous()
+        h.update(k.encode())
+        h.update(str(v.dtype).encode())
+        h.update(v.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _cfg(pallas=False, **kw):
+    return tqf.QuadFitConfig(**{"max_points": 4096, "max_segments": 256,
+                                "max_quads": 16, "use_pallas_sort": pallas,
+                                **kw})
+
+
+@pytest.mark.parametrize("branch", ["fast", "stable"])
+@pytest.mark.parametrize("pallas", [False, True])
+def test_stages_bit_identical_to_the_presplit_function(
+        clean_points, branch, pallas, monkeypatch):
+    """fit_sort, the read, fit_lines and fit_quads run in turn give the
+    pre-split function's bits, through both windowed-error branches."""
+    from ros_vision_tpu_torch.device import HostSyncs
+    if branch == "stable":
+        monkeypatch.setattr(tqf, "ERRS_STABLE_MIN_SZ", 64)
+    pts, decim = clean_points
+    cfg = _cfg(pallas)
+    dm = t(decim)
+    tabs = tqf.constant_tables(dm.device, HostSyncs())
+    s = tqf.fit_sort(cfg, tuple(dm.shape), t(pts["key"]), t(pts["pack2"]))
+    assert bool(s["stable"]) == (branch == "stable")
+    ln = tqf.fit_lines(cfg, tabs, bool(s["stable"]), dm,
+                       **{k: s[k] for k in tqf._LINES_IN})
+    q = tqf.fit_quads(cfg, tabs, **{k: s[k] for k in tqf._QUADS_IN_S},
+                      **{k: ln[k] for k in tqf._QUADS_IN_L})
+    assert _digest(tqf._result(s, ln, q)) == PRESPLIT[branch, pallas]
+    out = tqf.cluster_and_fit({k: t(v) for k, v in pts.items()}, dm, cfg)
+    assert _digest(out) == PRESPLIT[branch, pallas]
+
+
+class _CpuGraph:
+    """A CPU stand-in for a captured CUDA graph: it runs the stage on its
+    bound inputs once at capture, and each replay runs it again and
+    writes the results into the same output tensors."""
+
+    def __init__(self, fn, bound):
+        self.fn, self.bound = fn, bound
+        self.outputs = fn(**bound)
+
+    def replay(self):
+        for k, v in self.fn(**self.bound).items():
+            self.outputs[k].copy_(v)
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    from ros_vision_tpu_torch.device import HostSyncs
+
+    def record(self, fn, bound):
+        g = _CpuGraph(fn, bound)
+        return g, g.outputs
+    monkeypatch.setattr(tqf.GraphRunner, "_record", record)
+    tqf.constant_tables(torch.device("cpu"), HostSyncs())
+
+
+def _run(runner, pts, decim, cfg):
+    from ros_vision_tpu_torch.device import HostSyncs
+    syncs = HostSyncs()
+    out = runner.run({k: t(v) for k, v in pts.items()}, t(decim), cfg,
+                     syncs)
+    assert syncs.count == 1
+    return out
+
+
+def test_graph_runner_replays_bit_identical(clean_points, cpu_graphs):
+    """The runner's eager, capture and replay calls give the eager bits;
+    a result it returned keeps them when a later call replays the graphs
+    on other inputs."""
+    pts, decim = clean_points
+    runner = tqf.GraphRunner()
+    got = [_run(runner, pts, decim, _cfg()) for _ in range(3)]
+    assert runner.runs == {"eager": 1, "captured": 1, "replayed": 1}
+    assert [_digest(o) for o in got] == [PRESPLIT["fast", False]] * 3
+    flipped = ({k: v[::-1].copy() for k, v in pts.items()},
+               decim[::-1].copy())
+    other = _run(runner, *flipped, _cfg())
+    assert runner.runs["replayed"] == 2
+    assert [_digest(o) for o in got] == [PRESPLIT["fast", False]] * 3
+    for k in other:
+        np.testing.assert_array_equal(n(other[k]), n(got[0][k])[::-1],
+                                      err_msg=k)
+
+
+def test_graph_runner_runs_eagerly_where_capture_fails(clean_points,
+                                                       cpu_graphs,
+                                                       monkeypatch):
+    """A stage whose capture raises runs eagerly, then and from then on,
+    with a warning; the other stages still replay; outputs keep their
+    bits."""
+    pts, decim = clean_points
+    runner = tqf.GraphRunner()
+    record = tqf.GraphRunner._record
+
+    def failing(self, fn, bound):
+        if fn.func is tqf.fit_lines:
+            raise RuntimeError("capture invalidated")
+        return record(self, fn, bound)
+    monkeypatch.setattr(tqf.GraphRunner, "_record", failing)
+    _run(runner, pts, decim, _cfg())
+    with pytest.warns(UserWarning, match="lines stage's capture failed"):
+        got = [_run(runner, pts, decim, _cfg())]
+    got += [_run(runner, pts, decim, _cfg()) for _ in range(2)]
+    assert runner.runs == {"eager": 4, "captured": 0, "replayed": 0}
+    assert {key[0] for key in runner._graphs} == {"sort", "quads"}
+    assert [_digest(o) for o in got] == [PRESPLIT["fast", False]] * 3
+
+
+@pytest.mark.parametrize("change", ["B", "K", "decim", "config", "branch"])
+def test_graph_key_separates(clean_points, cpu_graphs, change, monkeypatch):
+    """A call that differs from two earlier ones only in `change` runs a
+    stage eagerly again: its graphs are keyed apart."""
+    pts, decim = clean_points
+    runner = tqf.GraphRunner()
+    for _ in range(2):
+        _run(runner, pts, decim, _cfg())
+    cfg = _cfg()
+    if change == "B":
+        pts, decim = {k: v[:1] for k, v in pts.items()}, decim[:1]
+    elif change == "K":
+        pts = {k: v[:, :2048] for k, v in pts.items()}
+    elif change == "decim":
+        decim = decim[:, :-2]
+    elif change == "config":
+        cfg = _cfg(max_quads=8)
+    else:
+        monkeypatch.setattr(tqf, "ERRS_STABLE_MIN_SZ", 64)
+    got = _run(runner, pts, decim, cfg)
+    assert runner.runs == {"eager": 2, "captured": 1, "replayed": 0}
+    stages = {key[0] for key in runner._seen}
+    assert stages == {"sort", "lines", "quads"}
+    # only the lines stage is keyed by the branch: sort and quads replay
+    assert len(runner._seen) == (4 if change == "branch" else 6)
+    want = _digest(tqf.cluster_and_fit({k: t(v) for k, v in pts.items()},
+                                       t(decim), cfg))
+    assert _digest(got) == want
+    assert _digest(_run(runner, pts, decim, cfg)) == want
+    assert runner.runs["captured"] == 2
+
+
+def test_recording_holds_launch_counts_for_each_replay():
+    from ros_vision_tpu_torch import _build
+    c = _build.LaunchCounter("probe")
+    c.add(2)
+    with _build.recording() as held:
+        c.add(3)
+        c.add(0)
+    assert (c.count, c.kernels) == (1, 2) and held == [(c, 3), (c, 0)]
+    for _ in range(2):
+        _build.replayed(held)
+    assert (c.count, c.kernels) == (5, 8)

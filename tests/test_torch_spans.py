@@ -20,6 +20,7 @@ from ros_vision_tpu_torch.apriltag.detector import TorchDetector
 from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                   simple_square_corners)
 from ros_vision_tpu_torch.device import HostSyncs
+from ros_vision_tpu_torch.ops import quadfit
 from ros_vision_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -37,6 +38,11 @@ READERS = {"detector.span_ms": ("detector",),
            "detector.syncs_counted": "syncs",
            "detector.sync_wait_ms": "sync_ns"}
 CELLS = ["tag800-pipelined-4cam", "tag1080-pipelined-4cam"]
+# constant-table uploads a CPU detector call makes after the first:
+# finish_points 1, each decode_quads 6 (its homographies' basis, the border
+# and data bit samples), the tail's corner table 1 and the plain pose's 2
+# (the card runs K3 and P1 in place of finish_points and the plain pose)
+UPLOADS = 16
 
 
 def _small(**kw):
@@ -177,6 +183,9 @@ def test_syncs_equal_a_patched_count(size, monkeypatch):
     def counted_item(self):
         seen["items"] += 1
         return item(self)
+    # cluster_and_fit's constant tables are uploaded once a device, so
+    # the count is of a call after the first
+    quadfit.constant_tables(torch.device("cpu"), HostSyncs())
     monkeypatch.setattr(torch, "tensor", counted(torch.tensor))
     monkeypatch.setattr(torch, "as_tensor", counted(torch.as_tensor))
     monkeypatch.setattr(torch.Tensor, "item", counted_item)
@@ -184,7 +193,7 @@ def test_syncs_equal_a_patched_count(size, monkeypatch):
     out, call = _one_call(det, g, intr)
     monkeypatch.undo()
     assert sorted(d.tag_id for d in det.unpack(out)[0]) == [0, 42, 100, 311]
-    assert seen["items"] == 4 and seen["uploads"] > 20
+    assert seen["items"] == 4 and seen["uploads"] == UPLOADS
     assert call["syncs"] == seen["uploads"] + seen["items"] \
         == det.host_syncs.count - before
     assert 0 < call["sync_ns"] < call["t1_ns"] - call["t0_ns"]
@@ -290,15 +299,62 @@ def test_manifest_entries():
                      "layer": layers[name.split(".")[0]],
                      "moves": "latency_p95_ms", "workloads": CELLS}
         assert callable(load_module("metrics", name, ROOT).read)
-    # added after the metrics the benchmark had
+    # added after the benchmark's first 11 metrics
     names = [m["name"] for m in manifest["per_layer"]]
-    assert set(names[-len(READERS):]) == set(READERS)
+    assert set(names[11:11 + len(READERS)]) == set(READERS)
+    assert entries["quadfit.graph_share"] == {
+        "name": "quadfit.graph_share", "unit": "%", "better": "higher",
+        "source": "program_counter", "layer": "ops.quadfit",
+        "moves": "latency_p95_ms", "workloads": CELLS}
+
+
+def test_graph_share_reader(monkeypatch):
+    """quadfit.graph_share: replayed cluster_and_fit calls over all of
+    them on a CUDA device, in %, over the spans stretch's program calls;
+    absent where none ran on a CUDA device or the records lack the
+    counts."""
+    rec = tracing.Recorder(span_slots=256, call_slots=64)
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    reader = load_module("metrics", "quadfit.graph_share", ROOT)
+    s = HostSyncs()
+
+    def calls(runs):
+        out = []
+        for how in runs:
+            t0 = time.time_ns()
+            with tracing.Call(s):
+                if how is not None:
+                    rec.quadfit_run(how)
+            out.append((t0, time.time_ns()))
+        return out
+
+    assert reader.read(_summary(calls([None] * 3))) is None
+    bounds = calls([0, 1, 2, 2, None, 2])
+    assert [(c["quadfit_eager"], c["quadfit_captured"],
+             c["quadfit_replayed"]) for c in rec.calls()[-6:]] == \
+        [(1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 1), (0, 0, 0), (0, 0, 1)]
+    assert reader.read(_summary(bounds)) == pytest.approx(60.0)
+    assert reader.read(_summary(bounds[2:])) == pytest.approx(100.0)
+    assert reader.read(_summary(bounds, "syncs")) is None
+    real = rec.calls
+    monkeypatch.setattr(rec, "calls", lambda *a: [
+        {k: v for k, v in c.items() if not k.startswith("quadfit_")}
+        for c in real(*a)])
+    assert reader.read(_summary(bounds)) is None
+    # the CPU runs cluster_and_fit eagerly, outside the runner
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    det, g, intr = _small()
+    _, call = _one_call(det, g, intr)
+    assert (call["quadfit_eager"], call["quadfit_captured"],
+            call["quadfit_replayed"]) == (0, 0, 0)
 
 
 def test_threads_record_calls_of_their_own(small):
     """A mesh of two CPU devices: each worker thread records its own
     call, with its own spans and counts."""
     det, g, intr = small
+    # cluster_and_fit's tables are uploaded on a device's first call only
+    quadfit.constant_tables(torch.device("cpu"), HostSyncs())
     det2 = TorchDetector(det.config, device="cpu")
     det2.use_mesh([torch.device("cpu"), torch.device("cpu")])
     g2 = torch.cat([g, g])
