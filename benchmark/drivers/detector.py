@@ -22,7 +22,7 @@ import time
 
 import numpy as np
 
-from benchmark.harness.compare import Answer, as_tuples
+from benchmark.judges.tags import Answer, as_tuples
 
 
 def detector_for(cfg: dict, device):

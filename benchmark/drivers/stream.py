@@ -35,7 +35,7 @@ import threading
 import time
 
 from benchmark.harness.camera import PacedCamera
-from benchmark.harness.compare import Answer, as_tuples
+from benchmark.judges.tags import Answer, as_tuples
 from benchmark.harness.nt4_server import ServerProcess
 from benchmark.harness.telemetry import Sampler
 

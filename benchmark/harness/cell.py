@@ -9,12 +9,23 @@ gives:
     benchmark/traffic/<traffic>.json    the mix: its driver, its scene
                                         generator and their parameters
     benchmark/workloads/<cell>.json     the cell's limits for `correct`
+    benchmark/judges/<judge>.py         the judge of `correct` that the
+                                        configuration names ("judge")
     benchmark/drivers/<driver>.py       a traffic driver: run(ctx)
     benchmark/scenes/<generator>.py     a scene generator: make(...)
     benchmark/metrics/<metric>.py       a per-layer metric: read(summary)
 
-A later cell, mix, configuration or metric adds files and entries; no
-file here needs an edit for it.
+A judge exposes NUMBERS, the names of its readings;
+reference(pool, cfg, control=False, workers=None), one entry a pool
+frame (control: the reference one precision below the configuration's);
+judge(answers, refs, pool, cfg, limits) -> (the widest reading of each
+number, the answers with a number over its limit, notes for the run);
+and control_readings(pool, cfg, limits) -> (the control's answers judged
+so: widest readings, answers over a limit, answers).
+
+A later cell, mix, configuration, metric or kind of configuration (its
+judge, driver and scene generator) adds files and entries; no file here
+needs an edit for it.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ class Cell:
     name: str
     config_name: str
     config: dict
+    judge: str
     traffic_name: str
     traffic: dict
     chips: int
@@ -66,9 +78,16 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     w = by_name[name]
     configs = {c["name"]: c for c in manifest["configs"]}
     bench = root / "benchmark"
-    cfg = _load_json(root / configs[w["config"]]["file"])
+    cfg_file = configs[w["config"]]["file"]
+    cfg = _load_json(root / cfg_file)
+    if "judge" not in cfg:
+        raise KeyError(f'{cfg_file} names no "judge": a configuration names '
+                       f"its judge of `correct`, benchmark/judges/<judge>.py")
+    if not (bench / "judges" / f"{cfg['judge']}.py").is_file():
+        raise FileNotFoundError(f'{cfg_file}: "judge" {cfg["judge"]!r} is not '
+                                f"a file benchmark/judges/{cfg['judge']}.py")
     return Cell(
-        name=name, config_name=w["config"], config=cfg,
+        name=name, config_name=w["config"], config=cfg, judge=cfg["judge"],
         traffic_name=w["traffic"],
         traffic=_load_json(bench / "traffic" / f"{w['traffic']}.json"),
         chips=int(w["chips"]),

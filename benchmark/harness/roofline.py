@@ -1,4 +1,5 @@
-"""The card's peaks and each kernel stage's least time.
+"""The card's peaks, each kernel stage's least time, and a network's
+share of the tensor cores' peak (mfu).
 
 A stage's least time is the larger of its bytes over the HBM rate and its
 f32 operations over the core rate. Bytes are the stage's inputs and
@@ -12,10 +13,12 @@ REFINE_SAMPLE_OPS, REFINE_CORNER_OPS.
 """
 from __future__ import annotations
 
-# NVIDIA H100 SXM data sheet, dense, at 700 W: HBM3 bytes a second and
-# float32 operations a second outside the tensor cores
+# NVIDIA H100 SXM data sheet, dense, at 700 W: HBM3 bytes a second,
+# float32 operations a second outside the tensor cores, and BF16
+# operations a second on the tensor cores (FP32 accumulate)
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+BF16_TENSOR_OPS_S = 989.4e12
 
 # f32 operations of one pose slot that P1 iterates (chip_smoke.POSE_OPS)
 POSE_POLAR_OPS = 29 + 8 * 59 + 14
@@ -37,6 +40,12 @@ KERNEL_STAGES = ("threshold", "frontend", "refine", "pose")
 
 def least_ms(nbytes: float, ops: float) -> float:
     return max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+
+
+def mfu(flops: float, ms: float) -> float:
+    """The share, in %, of the BF16 tensor-core peak that `flops` done in
+    `ms` milliseconds reach."""
+    return flops / (ms * 1e-3) / BF16_TENSOR_OPS_S * 100.0
 
 
 def pose_ops(H) -> int:

@@ -1,6 +1,7 @@
-"""How `correct` is decided: what the timed window produced against the
-plain reference (benchmark/reference: the frozen f64 NumPy oracle and its
-geometry), run once the window has closed.
+"""Judge "tags": how `correct` is decided for an AprilTag configuration,
+what the timed window produced against the plain reference
+(benchmark/reference: the frozen f64 NumPy oracle and its geometry), run
+once the window has closed.
 
 The reference detects each distinct frame of the run's pool once, in
 worker processes. Every answer the window produced is then compared with
@@ -89,10 +90,12 @@ def detect_frame(job):
             for d in res.detections]
 
 
-def reference(frames, cfg: dict, control: bool = False,
+def reference(pool, cfg: dict, control: bool = False,
               workers: int | None = None) -> list:
-    """The reference's detections of each frame, one worker process a
-    frame (at most the cores there are), single-threaded each."""
+    """The reference's detections of each frame of the pool, one worker
+    process a frame (at most the cores there are), single-threaded each.
+    control: the reference with its stages held in bfloat16."""
+    frames = pool.frames
     workers = min(len(frames), workers or os.cpu_count() or 1)
     jobs = [(f, cfg, control) for f in frames]
     if workers <= 1:
@@ -227,3 +230,43 @@ def compare(answers, refs: list, cfg: dict, limits: dict,
         for k in NUMBERS:
             worst[k] = max(worst[k], read[k])
     return worst, failed
+
+
+def _placed(pool):
+    """For each frame of the pool the ids its scene placed, or None where
+    the pool carries no truth."""
+    if getattr(pool, "truth", None) is None:
+        return None
+    return [{t.tag_id for t in f} for f in pool.truth]
+
+
+def judge(answers, refs: list, pool, cfg: dict, limits: dict) -> tuple:
+    """(the widest reading of each number, the answers with a number over
+    its limit, notes for the run: the tags the reference finds that the
+    scene never placed, [frame, id, hamming] each)."""
+    placed = _placed(pool)
+    notes = {}
+    if placed is not None:
+        notes["reference_unplaced"] = [
+            [i, r[0], r[1]] for i, found in enumerate(refs) for r in found
+            if r[0] not in placed[i]]
+    worst, failed = compare(answers, refs, cfg, limits, placed)
+    return worst, failed, notes
+
+
+def control_readings(pool, cfg: dict, limits: dict) -> tuple:
+    """The control in the program's place, judged as the program is: one
+    answer a distinct frame, its robot-frame positions through camera
+    i % cameras where the limits hold robot_m. Returns (the widest
+    reading of each number, the answers over a limit, the answers)."""
+    refs = reference(pool, cfg)
+    ctrl = reference(pool, cfg, control=True)
+    robot = "robot_m" in limits
+    answers = []
+    for i, dets in enumerate(ctrl):
+        cam = i % len(cfg.get("cameras", [0])) if robot else None
+        answers.append(Answer(
+            i, dets, [(d[0], *_robot(cfg, cam, d[4]))
+                      for d in dets] if robot else None, cam))
+    worst, failed = compare(answers, refs, cfg, limits, _placed(pool))
+    return worst, failed, len(answers)

@@ -7,7 +7,8 @@ From the root of a checkout, on a machine with as many NVIDIA cards as the
 cell asks for (it exits 2 without them). It makes the cell's frames from
 the seed, builds and warms the port (ros_vision_tpu_torch) on the cell's
 shapes, drives the cell's traffic for `--seconds`, checks what the window
-produced against the plain reference and prints, as the last line of
+produced against the plain reference, by the judge its configuration
+names (benchmark/judges/<judge>.py), and prints, as the last line of
 standard output, one JSON object: correct, attempted, failed, metrics
 (--trace 0: the cell's end-to-end metrics; --trace 1: its per-layer
 metrics), device, with --trace 1 a breakdown, and last the numbers
@@ -96,7 +97,7 @@ def measure(args, root: Path, device=None, t_start=None) -> dict:
     """One run of a cell; returns the result object (without printing).
     device: a torch device to run on instead of the card (tests only)."""
     from benchmark.harness import cell as cellmod
-    from benchmark.harness import compare, roofline, stats, trace
+    from benchmark.harness import roofline, stats, trace
     t_start = process_start() if t_start is None else t_start
     cell = cellmod.find_cell(args.workload, root)
     set_env(root)
@@ -201,15 +202,11 @@ def measure(args, root: Path, device=None, t_start=None) -> dict:
     del out, tracer, ctx
     if cuda:
         torch.cuda.empty_cache()
-    refs = compare.reference(pool.frames, cell.config)
-    placed = None
-    if getattr(pool, "truth", None) is not None:
-        placed = [{t.tag_id for t in f} for f in pool.truth]
-        notes["reference_unplaced"] = [
-            [i, r[0], r[1]] for i, found in enumerate(refs) for r in found
-            if r[0] not in placed[i]]
-    worst, failed = compare.compare(answers, refs, cell.config, cell.limits,
-                                    placed)
+    judge = cellmod.load_module("judges", cell.judge, root)
+    refs = judge.reference(pool, cell.config)
+    worst, failed, extra = judge.judge(answers, refs, pool, cell.config,
+                                       cell.limits)
+    notes.update(extra)
     notes["readings"] = worst
     checks = {k: {"value": worst[k], "limit": v}
               for k, v in cell.limits.items()}

@@ -9,27 +9,30 @@ from conftest import ROOT
 
 from benchmark import run
 from benchmark.harness import cell as cellmod
-from benchmark.harness import compare
+from benchmark.judges import tags
 
 
-@pytest.mark.parametrize("cell", ["tag800-pipelined-4cam",
-                                  "tag1080-pipelined-4cam"])
+CELLS = [w["name"] for w in
+         json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+TAG_CELLS = [c for c in CELLS if cellmod.find_cell(c).judge == "tags"]
+
+
+@pytest.mark.parametrize("cell", TAG_CELLS)
 def test_the_control_fails_the_cells_limits(cell):
     c = cellmod.find_cell(cell)
     scenes = cellmod.load_module("scenes", c.traffic["scene"]["generator"])
     params = dict(c.traffic["scene"], frames=2, tags_per_frame=[3, 4])
     pool = scenes.make(2 ** 31 + 77, c.config, params)
-    refs = compare.reference(pool.frames, c.config, workers=2)
-    ctrl = compare.reference(pool.frames, c.config, control=True,
-                             workers=2)
-    answers = [compare.Answer(i, d) for i, d in enumerate(ctrl)]
+    refs = tags.reference(pool, c.config, workers=2)
+    ctrl = tags.reference(pool, c.config, control=True, workers=2)
+    answers = [tags.Answer(i, d) for i, d in enumerate(ctrl)]
     limits = {k: v for k, v in c.limits.items() if k != "robot_m"}
-    worst, failed = compare.compare(answers, refs, c.config, limits)
+    worst, failed = tags.compare(answers, refs, c.config, limits)
     assert failed > 0
     assert any(worst[k] > v for k, v in limits.items())
     # the reference in the program's place passes
-    same = [compare.Answer(i, d) for i, d in enumerate(refs)]
-    assert compare.compare(same, refs, c.config, limits)[1] == 0
+    same = [tags.Answer(i, d) for i, d in enumerate(refs)]
+    assert tags.compare(same, refs, c.config, limits)[1] == 0
 
 
 def test_a_tag_the_scene_never_placed_is_not_due():
@@ -40,19 +43,25 @@ def test_a_tag_the_scene_never_placed_is_not_due():
     c = cellmod.find_cell("tag1080-pipelined-4cam")
     scenes = cellmod.load_module("scenes", c.traffic["scene"]["generator"])
     pool = scenes.make(2147485717, c.config, c.traffic["scene"])
-    ref = compare.reference(pool.frames[2:3], c.config, workers=1)[0]
+    frame2 = scenes.Pool(pool.frames[2:3], pool.truth[2:3])
+    ref = tags.reference(frame2, c.config, workers=1)[0]
     placed = [{t.tag_id for t in pool.truth[2]}]
     assert 181 in {r[0] for r in ref} and 181 not in placed[0]
     limits = {k: v for k, v in c.limits.items() if k != "robot_m"}
     real = [r for r in ref if r[0] in placed[0]]
-    worst, failed = compare.compare([compare.Answer(0, real)], [ref],
-                                    c.config, limits, placed)
+    worst, failed = tags.compare([tags.Answer(0, real)], [ref],
+                                 c.config, limits, placed)
     assert failed == 0 and worst["missed_tags"] == 0
+    # the judge takes the placed ids from the pool and notes the tag
+    worst, failed, notes = tags.judge([tags.Answer(0, real)], [ref], frame2,
+                                      c.config, limits)
+    assert failed == 0 and worst["missed_tags"] == 0
+    assert [x[:2] for x in notes["reference_unplaced"]] == [[0, 181]]
     # without the scene's ids every tag the reference finds is due
-    assert compare.compare([compare.Answer(0, real)], [ref], c.config,
-                           limits)[1] == 1
-    short = compare.compare([compare.Answer(0, real[1:])], [ref], c.config,
-                            limits, placed)
+    assert tags.compare([tags.Answer(0, real)], [ref], c.config,
+                        limits)[1] == 1
+    short = tags.compare([tags.Answer(0, real[1:])], [ref], c.config,
+                         limits, placed)
     assert short[1] == 1 and short[0]["missed_tags"] == 1
 
 
@@ -122,9 +131,12 @@ def test_a_broken_timed_path_is_not_correct(tiny_root, monkeypatch, cell,
 
 
 def test_limits_name_only_known_numbers():
-    for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]:
-        lim = cellmod.find_cell(w["name"]).limits
-        assert set(lim) <= set(compare.NUMBERS)
+    for name in CELLS:
+        c = cellmod.find_cell(name)
+        lim = c.limits
+        assert set(lim) <= set(cellmod.load_module("judges", c.judge).NUMBERS)
+        if c.judge != "tags":
+            continue
         for k in ("extra_ids", "missed_tags", "empty_answers",
                   "hamming_mismatch"):
             assert lim[k] == 0

@@ -1,5 +1,5 @@
 """Nothing the benchmark holds or loads is of the JAX stack, and the
-yardstick (reference, scenes, comparison) loads nothing of the port."""
+yardstick (reference, scenes, judges) loads nothing of the port."""
 import ast
 import json
 import subprocess
@@ -9,7 +9,7 @@ import pytest
 from conftest import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ros_vision_tpu"}
-YARDSTICK = ["reference", "scenes", "harness/compare.py",
+YARDSTICK = ["reference", "scenes", "judges",
              "harness/stats.py", "harness/roofline.py",
              "harness/camera.py", "harness/nt4_server.py",
              "harness/msgpack_mini.py"]
@@ -46,9 +46,10 @@ def test_the_yardstick_loads_nothing_of_the_port():
     code = (
         "import sys, json\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
-        "from benchmark.harness import cell, compare, stats, roofline\n"
+        "from benchmark.harness import cell, stats, roofline\n"
         "from benchmark.reference import control, oracle, render\n"
         "cell.load_module('scenes', 'tags3d')\n"
+        "cell.load_module('judges', 'tags')\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT)

@@ -24,6 +24,15 @@ def test_least_ms_is_the_larger_bound():
     assert roofline.least_ms(3.35e9, 2 * 67e9) == pytest.approx(2.0)
 
 
+def test_mfu_is_the_share_of_the_bf16_tensor_peak():
+    # the data sheet's dense BF16 tensor-core rate (1,979 with sparsity)
+    assert roofline.BF16_TENSOR_OPS_S == 989.4e12
+    assert roofline.mfu(989.4e9, 1.0) == pytest.approx(100.0)
+    assert roofline.mfu(8.7e9, 2.0) == pytest.approx(
+        8.7e9 / 2e-3 / 989.4e12 * 100)
+    assert roofline.mfu(989.4e9, 4.0) == pytest.approx(25.0)
+
+
 def test_pose_and_refine_count_only_live_slots():
     H = torch.zeros(2, 8, 3, 3)
     H[:, :3] = torch.eye(3)

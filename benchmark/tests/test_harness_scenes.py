@@ -7,7 +7,7 @@ import pytest
 from conftest import ROOT, TINY_CONFIG
 
 from benchmark.harness import cell as cellmod
-from benchmark.harness.compare import reference
+from benchmark.judges.tags import reference
 
 CFG = dict(json.loads((ROOT / "benchmark" / "configs" /
                        "tag36h11-1280x800.json").read_text()), **TINY_CONFIG)
@@ -38,7 +38,7 @@ def test_every_seed_has_the_same_amount_of_work():
 
 def test_the_reference_finds_the_truth():
     pool = SCENES.make(11, CFG, PARAMS)
-    refs = reference(pool.frames, CFG, workers=1)
+    refs = reference(pool, CFG, workers=1)
     for truth, found in zip(pool.truth, refs):
         assert sorted(t.tag_id for t in truth) == sorted(d[0] for d in found)
         for d in found:

@@ -1,7 +1,7 @@
-"""The control's readings: the reference with its stages held in bfloat16
-(benchmark/reference/control.py), in the program's place, judged by the
-same comparison as the program (benchmark/harness/compare.py) on a cell's
-frames at the cell's own size.
+"""The control's readings: the reference one precision below the
+configuration's, in the program's place, judged by the judge that the
+configuration names (benchmark/judges/<judge>.py), as the program is, on
+a cell's frames at the cell's own size.
 
     python3 benchmark/tools/control.py --workload <cell> --seeds n,n,n
 
@@ -21,24 +21,14 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 
-def readings(cell, seed: int) -> dict:
+def readings(cell, seed: int, root: Path = ROOT) -> dict:
     from benchmark.harness import cell as cellmod
-    from benchmark.harness import compare
-    scenes = cellmod.load_module("scenes", cell.traffic["scene"]["generator"])
+    scenes = cellmod.load_module("scenes", cell.traffic["scene"]["generator"],
+                                 root)
+    judge = cellmod.load_module("judges", cell.judge, root)
     pool = scenes.make(seed, cell.config, cell.traffic["scene"])
-    refs = compare.reference(pool.frames, cell.config)
-    ctrl = compare.reference(pool.frames, cell.config, control=True)
-    robot = "robot_m" in cell.limits
-    answers = []
-    for i, dets in enumerate(ctrl):
-        cam = i % len(cell.config.get("cameras", [0])) if robot else None
-        answers.append(compare.Answer(
-            i, dets, [(d[0], *compare._robot(cell.config, cam, d[4]))
-                      for d in dets] if robot else None, cam))
-    placed = [{t.tag_id for t in f} for f in pool.truth]
-    worst, failed = compare.compare(answers, refs, cell.config, cell.limits,
-                                    placed)
-    return {"seed": seed, "failed_answers": failed, "answers": len(answers),
+    worst, failed, n = judge.control_readings(pool, cell.config, cell.limits)
+    return {"seed": seed, "failed_answers": failed, "answers": n,
             "readings": worst}
 
 
