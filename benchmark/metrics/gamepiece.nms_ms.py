@@ -1,0 +1,18 @@
+"""gamepiece.nms_ms: host ms a call in the port's `gamepiece.nms`
+span (parse_and_nms, the greedy pass over the top-100 candidates, and
+the boxes scaled and packed), read from
+ros_vision_tpu_torch.utils.tracing.RECORDER as gamepiece.span_ms reads
+the `gamepiece` span (absent, never 0, where there are none). Moves
+latency_p95_ms."""
+from pathlib import Path
+
+from benchmark.harness.cell import load_module
+
+_base = load_module("metrics", "gamepiece.span_ms",
+                    Path(__file__).resolve().parents[2])
+
+NAMES = ("gamepiece.nms",)
+
+
+def read(summary):
+    return _base.span_ms(summary, NAMES)

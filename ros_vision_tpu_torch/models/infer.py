@@ -7,6 +7,17 @@ postprocess): resize + BGR->RGB + /255 preprocessing, the YOLOv11 forward
 (bf16 on the card by default) and fixed-shape on-device NMS. Weights load
 from the JAX package's .npz format (flattened "/" keys), so both packages
 read the same file, or from a torch state-dict checkpoint.
+
+detect_packed() is the cv2-free call of a robot's cameras: their frames
+staged in pinned memory and copied without blocking, preprocess_device,
+the forward and the NMS on the device, the kept boxes scaled back to the
+frames' pixels there, and one packed (B, K, 7) f32 result that the host
+reads once: unpack_detections, after fetch() has started its copy to
+pinned memory behind an event (PendingDetections). The call makes no host
+read and no upload between the copy in and the result read (a card test,
+benchmark/tests/test_gamepiece.py, runs it under
+torch.cuda.set_sync_debug_mode("error")); it records a `gamepiece` call in
+utils/tracing.RECORDER with its spans.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch.nn.functional as F
 from ros_vision_tpu_torch.device import require_cuda
 from ros_vision_tpu_torch.models import yolo
 from ros_vision_tpu_torch.ops import nms
+from ros_vision_tpu_torch.utils.tracing import Call, Span
 
 
 @dataclasses.dataclass
@@ -31,6 +43,61 @@ class GamePieceDetection:
     conf: float
     cls: int
     class_name: str
+
+
+def pack_detections(out: dict, sx: float, sy: float) -> torch.Tensor:
+    """parse_and_nms's outputs -> one (B, K, 7) f32 tensor, a row a slot:
+    x, y, w, h (the box scaled by the Python floats sx, sy: no upload),
+    confidence, class, and 1.0 where the slot holds a kept detection."""
+    b = out["boxes"]
+    f32 = torch.float32
+    return torch.stack([b[..., 0] * sx, b[..., 1] * sy, b[..., 2] * sx,
+                        b[..., 3] * sy, out["scores"],
+                        out["classes"].to(f32), out["valid"].to(f32)], -1)
+
+
+class PendingDetections:
+    """A packed result on its way to the host: the pinned host tensor a
+    non-blocking copy writes and the event recorded after the copy."""
+
+    def __init__(self, host: torch.Tensor, event):
+        self.host = host
+        self.event = event
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
+def fetch(packed: torch.Tensor) -> PendingDetections:
+    """Start the copy of a packed result to the host: pinned memory and an
+    event behind it on a CUDA device, the tensor itself on the CPU."""
+    if packed.device.type != "cuda":
+        return PendingDetections(packed, None)
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(packed.device))
+    return PendingDetections(host, event)
+
+
+def unpack_detections(packed, class_names=()) -> list:
+    """A packed result (tensor or PendingDetections) -> one list of
+    GamePieceDetection per row, in slot order (confidence descending)."""
+    if isinstance(packed, PendingDetections):
+        packed = packed.wait()
+    rows = []
+    for row in packed.cpu().numpy():
+        dets = []
+        for x, y, w, h, conf, c, valid in row.tolist():
+            if valid > 0.5:
+                c = int(c)
+                dets.append(GamePieceDetection(
+                    x, y, w, h, conf, c, class_names[c]
+                    if c < len(class_names) else "unknown"))
+        rows.append(dets)
+    return rows
 
 
 class ModelInference:
@@ -150,6 +217,42 @@ class ModelInference:
                 float(b[0] * sx), float(b[1] * sy), float(b[2] * sx),
                 float(b[3] * sy), float(out["scores"][i]), c, name))
         return dets
+
+    def stage(self, bgr_batch) -> torch.Tensor:
+        """(B, H, W, 3) uint8 frames on the device: host frames staged in
+        pinned memory, then copied without blocking, as VisionNode.upload
+        stages them. numpy copies them into the pinned buffer on the
+        calling thread (a torch copy of a frame batch's megabytes wakes
+        every intra-op thread at each call). A tensor already on the
+        device, or already pinned, is taken as it is."""
+        if isinstance(bgr_batch, torch.Tensor) and (
+                bgr_batch.device == self.device or bgr_batch.is_pinned()):
+            return bgr_batch.to(self.device, non_blocking=True)
+        frames = np.asarray(bgr_batch)
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(frames))
+        host = torch.empty(frames.shape, dtype=torch.uint8, pin_memory=True)
+        np.copyto(host.numpy(), frames)
+        return host.to(self.device, non_blocking=True)
+
+    @torch.inference_mode()
+    def detect_packed(self, bgr_batch, with_raw: bool = False):
+        """One call on (B, H, W, 3) uint8 BGR frames: stage,
+        preprocess_device, forward, parse_and_nms and the boxes scaled to
+        the frames' pixels, all on the device -> the packed (B, K, 7) f32
+        result (and the raw (B, 4 + nc, A) head output with `with_raw`)."""
+        with Call(None, "gamepiece"):
+            x = self.stage(bgr_batch)
+            h, w = x.shape[1:3]
+            with Span("gamepiece.preprocess"):
+                x = self.preprocess_device(x)
+            with Span("gamepiece.forward"):
+                raw = self.forward(x)
+            with Span("gamepiece.nms"):
+                packed = pack_detections(
+                    nms.parse_and_nms(raw, self.max_detections),
+                    w / self.img_size, h / self.img_size)
+        return (packed, raw) if with_raw else packed
 
     def detect(self, bgr: np.ndarray,
                conf_threshold: float = nms.CONF_THRESHOLD) -> list:

@@ -12,7 +12,9 @@ Precision follows the flax model run at a compute dtype: every ConvBN's
 convolution runs in that dtype, its BatchNorm in f32 statistics with the
 result rounded to the dtype; the head's last 1x1 convolutions, the DFL
 softmax and the class sigmoid run in f32 (flax promotes them to the f32
-params).
+params). The head's 1x1 convolutions run as f32 matmuls (head_1x1): cuDNN
+rounds an f32 convolution to TF32 by default, a matmul only where the
+process asks for it.
 """
 from __future__ import annotations
 
@@ -27,6 +29,15 @@ import torch.nn.functional as F
 
 def autopad(k: int) -> int:
     return k // 2
+
+
+def head_1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A head's last 1x1 convolution on (B, C, H, W) x in f32 ->
+    (B, H, W, out): a matmul, whose f32 precision is the process's
+    float32_matmul_precision ("highest" unless set), not cuDNN's TF32."""
+    w = conv.weight
+    return F.linear(x.float().permute(0, 2, 3, 1),
+                    w.reshape(w.shape[0], w.shape[1]), conv.bias)
 
 
 class ConvBN(nn.Module):
@@ -285,16 +296,14 @@ class YOLOv11(nn.Module):
         for i, (f, s) in enumerate(zip((h3, h4b, h5), STRIDES)):
             bx = getattr(self, f"cv2_{i}_0")(f)
             bx = getattr(self, f"cv2_{i}_1")(bx)
-            bx = getattr(self, f"cv2_{i}_2")(bx.float())
+            bx = head_1x1(getattr(self, f"cv2_{i}_2"), bx)
             cl = f
             for j in ("0_0", "0_1", "1_0", "1_1"):
                 cl = getattr(self, f"cv3_{i}_{j}")(cl)
-            cl = getattr(self, f"cv3_{i}_2")(cl.float())
+            cl = head_1x1(getattr(self, f"cv3_{i}_2"), cl)
             b, _, hgt, wid = f.shape
-            box_outs.append(bx.permute(0, 2, 3, 1).reshape(b, -1,
-                                                           4 * self.reg_max))
-            cls_outs.append(cl.permute(0, 2, 3, 1).reshape(b, -1,
-                                                           self.num_classes))
+            box_outs.append(bx.reshape(b, -1, 4 * self.reg_max))
+            cls_outs.append(cl.reshape(b, -1, self.num_classes))
             yy, xx = torch.meshgrid(
                 torch.arange(hgt, dtype=torch.float32, device=f.device),
                 torch.arange(wid, dtype=torch.float32, device=f.device),

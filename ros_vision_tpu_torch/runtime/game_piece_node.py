@@ -9,6 +9,14 @@ reference's node-level inference call is an unimplemented TODO
 runs the full path: frames -> preprocess -> YOLO forward + on-device
 NMS -> scaled detections -> publishers.
 
+process_frames() is the batched call over a robot's cameras: their frames
+in one ModelInference.detect_packed call, with no cv2 and no host read
+between the copy in and the result read; fetch() starts the result's copy
+to the host without blocking, so that a caller can keep two calls in
+flight, and unpack() and publish() hand each camera its detections.
+process_frame() is one camera's call of the same path on a CUDA engine;
+on a CPU engine it keeps the host path (cv2 resize), as the JAX node.
+
 Config comes from system_config's game_piece_detection section (engine_file
 -> weights .npz path, class_names) via ConfigLoader, same as the reference.
 """
@@ -22,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ros_vision_tpu_torch.config.loader import ConfigLoader
+from ros_vision_tpu_torch.models import infer
 from ros_vision_tpu_torch.models.infer import ModelInference
 from ros_vision_tpu_torch.ops import nms
 from ros_vision_tpu_torch.runtime.publisher_queue import PublisherQueue
@@ -61,15 +70,46 @@ class GamePieceNode:
         self.conf_threshold = conf_threshold
         self.frames_processed = 0
 
+    def process_frames(self, frames, with_raw: bool = False):
+        """The cameras' frames, (B, H, W, 3) uint8 BGR, in one call on the
+        engine's device -> the packed (B, K, 7) f32 result there
+        (infer.pack_detections), and the raw head output with
+        `with_raw`."""
+        out = self.engine.detect_packed(frames, with_raw)
+        self.frames_processed += len(frames)
+        return out
+
+    @staticmethod
+    def fetch(packed) -> infer.PendingDetections:
+        """Start the packed result's copy to the host (pinned memory, an
+        event behind it) without waiting for it."""
+        return infer.fetch(packed)
+
+    def unpack(self, packed) -> list:
+        """A packed result (or its PendingDetections) -> one list of
+        GamePieceDetection per camera, waiting for the copy if need be."""
+        return infer.unpack_detections(packed, self.engine.class_names)
+
+    def publish(self, rows, frames=None, stamp: float | None = None,
+                frame_ids=None) -> None:
+        """Each camera's detections to the publishers, one message a camera
+        (and its annotated frame where `frames` are given)."""
+        stamp = stamp or time.time()
+        for i, dets in enumerate(rows):
+            if self.detection_publisher is not None:
+                self.detection_publisher(GamePieceMsg(
+                    dets, stamp, frame_ids[i] if frame_ids else ""))
+            if self._img_queue is not None and frames is not None:
+                self._img_queue.enqueue(self.annotate(frames[i], dets))
+
     def process_frame(self, bgr: np.ndarray, stamp: float | None = None,
                       frame_id: str = "") -> list:
-        dets = self.engine.detect(bgr, self.conf_threshold)
-        self.frames_processed += 1
-        if self.detection_publisher is not None:
-            self.detection_publisher(GamePieceMsg(
-                dets, stamp or time.time(), frame_id))
-        if self._img_queue is not None:
-            self._img_queue.enqueue(self.annotate(bgr, dets))
+        if self.engine.device.type == "cuda":
+            dets = self.unpack(self.process_frames(bgr[None]))[0]
+        else:
+            dets = self.engine.detect(bgr, self.conf_threshold)
+            self.frames_processed += 1
+        self.publish([dets], [bgr], stamp, [frame_id])
         return dets
 
     @staticmethod

@@ -22,7 +22,11 @@ every kernel (cuda_frc971.cu:5-26). Here:
     with time.time_ns(), the clock of torch.profiler's events, so device
     operations and idle gaps in a profile can be put down to the span open
     at their runtime call. No span synchronises, records an event or reads
-    the device.
+    the device. A game-piece call (ModelInference.detect_packed) opens a
+    call record of its own the same way, under a `gamepiece` span, with
+    `gamepiece.preprocess`, `gamepiece.forward` and `gamepiece.nms`
+    inside (GAMEPIECE_SPANS); it makes no host read and no upload, so it
+    counts none (Call with no HostSyncs: `syncs` and `sync_ns` 0).
   - stage_taps(): runs the pipeline stage by stage and returns every
     intermediate (threshold image, labels, boundary points, segment stats,
     quads, decode fields) as numpy, under the JAX package's key names — the
@@ -52,6 +56,9 @@ import torch
 # the spans a detector call records, in pipeline order
 SPANS = ("detector", "quadfit", "quadfit.sort", "quadfit.lines",
          "quadfit.quads", "decode.screen", "decode.refine", "decode.tail")
+# the spans a game-piece call records (models/infer.ModelInference)
+GAMEPIECE_SPANS = ("gamepiece", "gamepiece.preprocess", "gamepiece.forward",
+                   "gamepiece.nms")
 # how a cluster_and_fit call on a CUDA device ran (ops/quadfit.GraphRunner)
 QUADFIT_RUNS = ("eager", "captured", "replayed")
 SPAN_SLOTS = 1 << 18
@@ -59,13 +66,15 @@ CALL_SLOTS = 1 << 16
 
 
 class _Open:
-    """The calling thread's open call: its sequence number, start (epoch
-    ns), its HostSyncs' count and ns at the start, the sequence number of
-    its first span, and its cluster_and_fit runs on a CUDA device by how
-    they ran (QUADFIT_RUNS)."""
-    __slots__ = ("seq", "t0", "syncs", "sync_ns", "span_lo", "quadfit")
+    """The calling thread's open call: the name of its outer span, its
+    sequence number, start (epoch ns), its HostSyncs' count and ns at the
+    start, the sequence number of its first span, and its cluster_and_fit
+    runs on a CUDA device by how they ran (QUADFIT_RUNS)."""
+    __slots__ = ("name", "seq", "t0", "syncs", "sync_ns", "span_lo",
+                 "quadfit")
 
-    def __init__(self, seq: int, t0: int, syncs):
+    def __init__(self, name: str, seq: int, t0: int, syncs):
+        self.name = name
         self.seq = seq
         self.t0 = t0
         self.syncs = syncs.count
@@ -135,14 +144,14 @@ class Recorder:
         if o is not None:
             o.quadfit[how] += 1
 
-    def _begin(self, syncs) -> _Open:
-        o = _Open(next(self._call_seq), time.time_ns(), syncs)
+    def _begin(self, syncs, name: str = "detector") -> _Open:
+        o = _Open(name, next(self._call_seq), time.time_ns(), syncs)
         self._local.open = o
         return o
 
     def _end(self, o: _Open, syncs) -> None:
         t1 = time.time_ns()
-        self._span("detector", o.t0, t1)
+        self._span(o.name, o.t0, t1)
         self._local.open = None
         self._local.last_ns = t1 - o.t0
         seq, c0, c1, thread, n_syncs, sync_ns, lo, *runs = self._calls
@@ -169,8 +178,8 @@ class Recorder:
         sync_ns, quadfit_eager, quadfit_captured, quadfit_replayed (its
         cluster_and_fit calls on a CUDA device by QUADFIT_RUNS) and spans,
         {name: [(t0_ns, t1_ns), ...]} of the spans recorded inside the
-        call (`detector` among them), or None where the span ring no
-        longer holds them all."""
+        call (its outer span, `detector` or `gamepiece`, among them), or
+        None where the span ring no longer holds them all."""
         c = np.stack([np.frombuffer(a, np.int64) for a in self._calls])
         s = np.stack([np.frombuffer(a, np.int64) for a in self._spans])
         names = list(self._names)
@@ -217,18 +226,26 @@ class Span:
             RECORDER._span(self._name, self._t0, time.time_ns())
 
 
-class Call:
-    """The `detector` span: opens the calling thread's call record and
-    closes it with the span, with the syncs `syncs` (device.HostSyncs)
-    counted and timed in between."""
-    __slots__ = ("_syncs", "_open")
+class _NoSyncs:
+    """The syncs of a call that routes none through a device.HostSyncs."""
+    count = 0
+    ns = 0
 
-    def __init__(self, syncs):
-        self._syncs = syncs
+
+class Call:
+    """The `detector` span (or the span `name`): opens the calling
+    thread's call record and closes it with the span, with the syncs
+    `syncs` (device.HostSyncs, or None for a call that makes none)
+    counted and timed in between."""
+    __slots__ = ("_syncs", "_name", "_open")
+
+    def __init__(self, syncs, name: str = "detector"):
+        self._syncs = _NoSyncs if syncs is None else syncs
+        self._name = name
 
     def __enter__(self):
-        self._open = RECORDER._begin(self._syncs) if RECORDER.enabled \
-            else None
+        self._open = RECORDER._begin(self._syncs, self._name) \
+            if RECORDER.enabled else None
         return self
 
     def __exit__(self, *exc):

@@ -4,7 +4,8 @@ the CPU: the spans a detect_raw call records and how they nest, outputs
 bit-identical with the recorder off, the count against a patched count of
 uploads and `.item()` reads at both deployment sizes, the rings' bounds,
 threads, the clock shared with torch.profiler, the benchmark's readers of
-them (benchmark/metrics/) and the served loop's det_time_us."""
+them (benchmark/metrics/), the served loop's det_time_us, and the
+game-piece call's spans and their readers."""
 import csv
 import json
 import threading
@@ -37,7 +38,12 @@ READERS = {"detector.span_ms": ("detector",),
                               "decode.tail"),
            "detector.syncs_counted": "syncs",
            "detector.sync_wait_ms": "sync_ns"}
-CELLS = ["tag800-pipelined-4cam", "tag1080-pipelined-4cam"]
+CELLS = ["tag800-pipelined-4cam", "tag1080-pipelined-4cam",
+         "tag800-sync-1cam"]
+GAMEPIECE_CELL = "gamepiece-yolo11n-pipelined-4cam"
+GAMEPIECE_READERS = {"gamepiece.span_ms": ("gamepiece",),
+                     "gamepiece.forward_ms": ("gamepiece.forward",),
+                     "gamepiece.nms_ms": ("gamepiece.nms",)}
 # constant-table uploads a CPU detector call makes after the first:
 # finish_points 1, each decode_quads 6 (its homographies' basis, the border
 # and data bit samples), the tail's corner table 1 and the plain pose's 2
@@ -423,3 +429,116 @@ def test_det_time_us_holds_the_detector_span(small, tmp_path):
     det_us = float(row["det_time_us"])
     assert pending.detect_ns / 1e3 <= det_us + 0.1
     assert det_us <= pending.detect_ns / 1e3 + waited_us + 0.1
+
+
+def _gamepiece_engine():
+    from ros_vision_tpu_torch.models.infer import ModelInference
+    return ModelInference(num_classes=1, img_size=96, dtype=torch.float32,
+                          device="cpu")
+
+
+def test_a_gamepiece_call_records_each_span_once():
+    eng = _gamepiece_engine()
+    frames = np.random.default_rng(0).integers(0, 255, (2, 96, 128, 3),
+                                               dtype=np.uint8)
+    since = time.time_ns()
+    packed = eng.detect_packed(frames)
+    calls = tracing.RECORDER.calls(since)
+    assert len(calls) == 1 and packed.shape == (2, 100, 7)
+    call = calls[0]
+    assert set(call["spans"]) == set(tracing.GAMEPIECE_SPANS)
+    assert all(len(v) == 1 for v in call["spans"].values())
+    sp = {k: v[0] for k, v in call["spans"].items()}
+    assert sp["gamepiece"] == (call["t0_ns"], call["t1_ns"])
+    parts = [sp[k] for k in tracing.GAMEPIECE_SPANS[1:]]
+    assert all(call["t0_ns"] <= a <= b <= call["t1_ns"] for a, b in parts)
+    # in order and apart: preprocess, then forward, then NMS
+    assert parts[0][1] <= parts[1][0] and parts[1][1] <= parts[2][0]
+    # it counts no host read and no upload (the card test holds that
+    # there are none)
+    assert call["syncs"] == 0 and call["sync_ns"] == 0
+    # a second call, a second record
+    eng.detect_packed(frames)
+    assert len(tracing.RECORDER.calls(since)) == 2
+
+
+def test_a_call_without_host_syncs_records_none(monkeypatch):
+    rec = tracing.Recorder(span_slots=64, call_slots=16)
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    with tracing.Call(None, "gamepiece"):
+        with tracing.Span("gamepiece.nms"):
+            pass
+    (call,) = rec.calls()
+    assert call["syncs"] == 0 and call["sync_ns"] == 0
+    assert set(call["spans"]) == {"gamepiece", "gamepiece.nms"}
+
+
+def _record_gamepiece(rec, n_calls, syncs=0):
+    s = HostSyncs()
+    out = []
+    for _ in range(n_calls):
+        t0 = time.time_ns()
+        with tracing.Call(s, "gamepiece"):
+            for name in tracing.GAMEPIECE_SPANS[1:]:
+                with tracing.Span(name):
+                    pass
+            for _ in range(syncs):
+                s.item(torch.tensor(1))
+        out.append((t0, time.time_ns()))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(GAMEPIECE_READERS))
+def test_gamepiece_reader_on_a_synthetic_recorder(name, monkeypatch):
+    rec = tracing.Recorder(span_slots=256, call_slots=64)
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    reader = load_module("metrics", name, ROOT)
+    assert reader.read(_summary([])) is None
+    # detector calls alone: nothing of the game piece to read
+    bounds = _record(rec, 3)
+    assert reader.read(_summary(bounds)) is None
+    bounds = _record_gamepiece(rec, 5, syncs=1)
+    held = rec.calls()[3:]
+    got = reader.read(_summary(bounds))
+    assert got == pytest.approx(_expect(held, GAMEPIECE_READERS[name]))
+    assert got > 0
+    assert reader.read(_summary(bounds, "syncs")) is None
+    monkeypatch.delattr(tracing, "RECORDER")
+    assert reader.read(_summary(bounds)) is None
+
+
+def test_gamepiece_mfu_and_launches_readers(monkeypatch):
+    from benchmark.harness import roofline
+    rec = tracing.Recorder(span_slots=256, call_slots=64)
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    mfu = load_module("metrics", "gamepiece.mfu", ROOT)
+    span = load_module("metrics", "gamepiece.span_ms", ROOT)
+    bounds = _record_gamepiece(rec, 4)
+    summary = _summary(bounds)
+    summary["layers"] = {}
+    assert mfu.read(summary) is None
+    summary["layers"] = {"gamepiece_flops": 25.5e9}
+    ms = span.read(summary)
+    assert mfu.read(summary) == pytest.approx(
+        25.5e9 / (ms * 1e-3) / roofline.BF16_TENSOR_OPS_S * 100)
+    launches = load_module("metrics", "gamepiece.launches", ROOT)
+    assert launches.read({"profile": None}) is None
+    prof = {"calls": 4, "device_ops": 4100, "stages": {
+        "other": {"launches": 4000, "device_ms": 1.0},
+        "outside calls": {"launches": 100, "device_ms": 0.1}}}
+    assert launches.read({"profile": prof}) == 1000
+
+
+def test_gamepiece_manifest_entries():
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in manifest["per_layer"]}
+    for name in list(GAMEPIECE_READERS) + ["gamepiece.launches",
+                                           "gamepiece.mfu"]:
+        m = entries[name]
+        assert m["workloads"] == [GAMEPIECE_CELL]
+        assert m["moves"] == "latency_p95_ms"
+        assert m["layer"] == "runtime.game_piece_node + models.infer"
+        assert callable(load_module("metrics", name, ROOT).read)
+    for name in ("device.idle_share", "loop.frames_per_s",
+                 "loop.latency_p50_ms"):
+        assert GAMEPIECE_CELL in entries[name]["workloads"]
