@@ -177,23 +177,31 @@ Phases, each of which raises (and so exits nonzero) on failure:
      and on; launches counted as the eager call's; one synchronising
      operation a replayed call; results kept through later replays; the
      three kinds of call under torch.profiler; host ms eager vs replayed;
- 13. mesh (parallel/mesh.py): detect_raw and detect_raw_packed of a
+ 13. decode_graph (ops/decode.GraphRunner): decode_quads' eager,
+     capturing and replaying calls bit-identical to its eager body in
+     every returned tensor, on the detector's unrefined corners at
+     1280x800 B=1 and B=4 and 1920x1080 B=4, in 8, 32 and 128 slots; no
+     synchronising operation in a replayed call; results kept through
+     later replays; a warm B=4 detect_raw_packed call's 4 synchronising
+     operations, host_syncs == call record == sync debug mode; host ms
+     eager vs replayed;
+ 14. mesh (parallel/mesh.py): detect_raw and detect_raw_packed of a
      detector sharded by TorchDetector.use_mesh over [cuda:0, cuda:0]
      on the 1280x800 B=4 batch; the ok mask in
      every slot and every output in the accepted slots bit-identical to
      the unsharded B=4 call and to per-row B=1 calls; ms a call of both;
- 14. soak (tools/soak.py) against the f64 oracle: parity on 100 seeds,
+ 15. soak (tools/soak.py) against the f64 oracle: parity on 100 seeds,
      hard on 50 with --audit-misses, gate on 4; no mismatch, no miss the
      oracle does not share, the flood path's kernels (320x160, 640x400);
- 15. bench: python -m ros_vision_tpu_torch.bench in a subprocess with
+ 16. bench: python -m ros_vision_tpu_torch.bench in a subprocess with
      BENCH_ENV's cuts; its last line parsed, tags_ok, every key of
      bench.py's record filled (the golden photo's marked skipped when the
      photo is absent); its headline, sweep, streaming and stage lines.
-Each of phases 10-15 prints its seconds beside the card's name and power
+Each of phases 10-16 prints its seconds beside the card's name and power
 limit.
 K10 and K11 have no caller on any path (nor in the JAX package outside
 its tests), so their launches read 0.
-Every path of phases 3-14 runs with the launch counts set to 0 just
+Every path of phases 3-15 runs with the launch counts set to 0 just
 before it and read just after; the launches of the kernels line sum those runs.
 On every path the device launches that the C launchers of K1, K2, K3, K4,
 K6, K7, K10, K11, P1 and P2 report equal their fixed number per call
@@ -3162,6 +3170,7 @@ def quadfit_graph_phase(dev, batches: dict) -> dict:
     from ros_vision_tpu_torch.apriltag.detector import (
         TorchDetector, adaptive_threshold_fused, frontend)
     from ros_vision_tpu_torch.device import HostSyncs
+    from ros_vision_tpu_torch.ops import graphs
     from ros_vision_tpu_torch.ops import quadfit as qf
 
     def inputs(det, frames):
@@ -3300,12 +3309,129 @@ def quadfit_graph_phase(dev, batches: dict) -> dict:
           f"under torch.profiler: {runner.runs}")
     kernels = sum(1 for e in prof.profiler.kineto_results.events()
                   if e.device_type().name == "CUDA")
-    held = qf._graph_launch() is not None and hasattr(
+    held = graphs._graph_launch() is not None and hasattr(
         torch.cuda.CUDAGraph, "raw_cuda_graph_exec")
     check(held, "graphs are not launched with the GIL held")
     print(f"  {name}: eager, capture and replay under torch.profiler "
           f"bit-identical; {kernels} device events profiled; graphs "
           f"launched by cudaGraphLaunch with the GIL held")
+    return out
+
+
+def decode_graph_phase(dev, batches: dict) -> dict:
+    """ops/decode.GraphRunner on the card: decode_quads' eager, capturing
+    and replaying calls (a fresh runner each: the first call at a key runs
+    eagerly, the second captures, the third replays) against the eager
+    body (decode._decode_quads), every returned tensor bit for bit, on the
+    detector's unrefined corners (its cluster_and_fit slots, largest area
+    first) at 1280x800 B=1 and B=4 and 1920x1080 B=4, in the first 8, 32
+    and 128 slots; no synchronising operation in a replaying call under
+    torch.cuda.set_sync_debug_mode("warn"); a returned result unchanged
+    after a later call replays the graph on the batch's rows reversed,
+    which give the eager body's rows reversed; a warm detect_raw_packed
+    call's synchronising operations, 4, as host_syncs counts them and as
+    the sync debug mode warns of them; host ms a call, eager against
+    replayed."""
+    import warnings
+
+    import torch
+    from ros_vision_tpu_torch.apriltag.detector import (
+        TorchDetector, adaptive_threshold_fused, frontend)
+    from ros_vision_tpu_torch.device import HostSyncs
+    from ros_vision_tpu_torch.ops import decode as dec
+    from ros_vision_tpu_torch.ops import quadfit as qf
+
+    def same(what, got, want):
+        check(set(got) == set(want), f"{what}: keys {sorted(got)}")
+        for k in want:
+            check_same_bits(f"{what} {k}", got[k], want[k])
+
+    out = {}
+    for (width, height), (bench4, _) in batches.items():
+        det = TorchDetector(device=dev, **detector_kw(width, height))
+        fam, cm = det.family, det._code_matrix
+        tabs = dec.decode_tables(fam, dev, HostSyncs())
+        for b in ((1, 4) if width == W else (4,)):
+            g = torch.from_numpy(np.ascontiguousarray(bench4[:b])).to(dev)
+            decim, th = adaptive_threshold_fused(g)
+            pts, _ = frontend(th, det.config.max_points,
+                              det._qcfg.max_boundary_pixels)
+            quads = qf.cluster_and_fit(pts, decim, det._qcfg)
+            corners = dec.adjust_pixel_centers(quads["corners"])
+            for nq in (8, 32, 128):
+                what = f"{width}x{height} B={b} NQ={nq}"
+                c = corners[:, :nq].contiguous()
+                v = quads["quad_valid"][:, :nq].contiguous()
+
+                def eager(g=g, c=c, v=v):
+                    return dec._decode_quads(fam, tabs, cm, g, c, v)
+                want = eager()
+                check(bool(want["ok"].any()), f"{what}: no tag decoded")
+                runner = dec.GraphRunner()
+
+                def graphed(g=g, c=c, v=v, runner=runner):
+                    return dec.decode_quads(g, c, v, fam, cm,
+                                            graphs=runner)
+                got = []
+                for how in dec.GraphRunner.RUNS:
+                    before = dict(runner.runs)
+                    res = graphed()
+                    check(runner.runs[how] == before[how] + 1,
+                          f"{what}: call ran {runner.runs}, not {how}")
+                    same(f"{what} {how}", res, want)
+                    got.append(res)
+                torch.cuda.synchronize()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        flipped = dec.decode_quads(
+                            g.flip(0), c.flip(0), v.flip(0), fam, cm,
+                            graphs=runner)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                warned = sum("called a synchronizing CUDA operation"
+                             in str(w.message) for w in caught)
+                check(runner.runs["replayed"] == 2 and warned == 0,
+                      f"{what}: reversed rows ran {runner.runs}, "
+                      f"{warned} syncs warned")
+                for res in got:
+                    same(f"{what} after a later replay", res, want)
+                same(f"{what} reversed rows", flipped,
+                     {k: t.flip(0) for k, t in want.items()})
+                ms = {}
+                for how, fn in (("eager", eager), ("replayed", graphed)):
+                    fn()
+                    times = []
+                    for _ in range(REPS):
+                        t0 = time.perf_counter()
+                        fn()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                        torch.cuda.synchronize()
+                    ms[how] = statistics.median(times)
+                out[what] = dict(host_ms=ms)
+                print(f"  {what}: eager, capture, replay and a replay on "
+                      f"reversed rows bit-identical to the eager body, 0 "
+                      f"syncs a replayed call; host ms a call (median of "
+                      f"{REPS}, no synchronize inside, {CARD}): eager "
+                      f"{ms['eager']:.3f}, replayed {ms['replayed']:.3f}")
+        g4 = torch.as_tensor(bench4, device=dev)
+        intr = torch.as_tensor(det.default_intrinsics(4), device=dev)
+        for _ in range(3):
+            det.detect_raw_packed(g4, intr)
+        syncs = sync_count(det, g4, intr)
+        check(syncs[0] == syncs[1] == syncs[2] == 4,
+              f"{width}x{height} B=4 warm call syncs: host_syncs "
+              f"{syncs[0]}, call record {syncs[1]}, sync debug mode "
+              f"{syncs[2]}, not 4")
+        check(det._decode_graphs.runs["replayed"] >= 2,
+              f"{width}x{height}: detector decodes ran "
+              f"{det._decode_graphs.runs}")
+        print(f"  {width}x{height} B=4 warm detect_raw_packed: "
+              f"{syncs[0]} synchronising operations (host_syncs == call "
+              f"record == sync debug mode); decode runs "
+              f"{det._decode_graphs.runs}")
+        out[f"{width}x{height} warm syncs"] = syncs[0]
     return out
 
 
@@ -3534,6 +3660,7 @@ def main() -> int:
             ("tf32", lambda: tf32_phase(dev, sizes)),
             ("tracing", lambda: tracing_phase(dev, sizes)),
             ("quadfit_graph", lambda: (quadfit_graph_phase(dev, sizes), {})),
+            ("decode_graph", lambda: (decode_graph_phase(dev, sizes), {})),
             ("mesh", lambda: mesh_phase(dev, bench4)),
             ("soak", lambda: soak_phase(dev)),
             ("bench", lambda: (bench_phase(), {}))):

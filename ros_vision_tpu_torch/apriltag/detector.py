@@ -18,9 +18,11 @@ plain versions do. There is no other switch. PyTorch runs eagerly, so the
 JAX package's device-side lax.cond/lax.switch choices become host reads
 (counted in `host_syncs`, with the constant tables' uploads); each branch
 computes exactly what the JAX branch computes. On a CUDA device
-cluster_and_fit replays its three stages as CUDA graphs once a shape
-recurs (ops/quadfit.GraphRunner, one a detector). Every call records its
-spans and synchronising operations in utils/tracing.RECORDER.
+cluster_and_fit replays its three stages, and each decode_quads call its
+body, as CUDA graphs once a shape recurs (ops/quadfit.GraphRunner and
+ops/decode.GraphRunner, one of each a detector); the constant tables are
+uploaded on a device's first call only. Every call records its spans and
+synchronising operations in utils/tracing.RECORDER.
 """
 from __future__ import annotations
 
@@ -193,6 +195,7 @@ class TorchDetector:
             self._qcfg, max_points=self._active_points)
         self.host_syncs = HostSyncs()
         self._quadfit_graphs = quadfit.GraphRunner()
+        self._decode_graphs = dec.GraphRunner()
         self.use_mesh(None)
 
     def use_mesh(self, mesh: list | None) -> None:
@@ -269,11 +272,11 @@ class TorchDetector:
                         syncs=syncs)
             with Span("decode.tail"):
                 d = dec.decode_quads(gray, c, qvalid, self.family,
-                                     self._code_matrix, syncs=syncs)
+                                     self._code_matrix, syncs=syncs,
+                                     graphs=self._decode_graphs)
             ok = d["ok"]
             H = d["H"]
-            tcs = syncs.upload([[-1, 1], [1, 1], [1, -1], [-1, -1]],
-                               gray.device, torch.float32)
+            tcs = dec.constant_tables(gray.device, syncs)["tag_corners"]
             px, py = dec.project(H[..., None, :, :], tcs[:, 0], tcs[:, 1])
             det_corners = torch.stack([px, py], -1)         # (B, nq, 4, 2)
             cx0, cy0 = dec.project(H, 0.0, 0.0)
@@ -324,7 +327,8 @@ class TorchDetector:
             # screens out quads that cannot become detections
             with Span("decode.screen"):
                 pre = dec.decode_quads(gray, corners, qvalid, self.family,
-                                       self._code_matrix, syncs=syncs)
+                                       self._code_matrix, syncs=syncs,
+                                       graphs=self._decode_graphs)
             screen = qvalid & (pre["hamming"] <= cfg.screen_hamming)
             prio = torch.where(screen, pre["margin"], -torch.inf)
             # lax.top_k order: descending, ties to the lower index

@@ -18,10 +18,17 @@ launches P2, csrc/refine.cu, once a call, the counterpart of the JAX
 function's _refine_edges_core with its lax.fori_loop. The two give the
 same sample positions, weights and undistorted points bit for bit; only
 the order of the six moment sums differs.
+
+decode_quads reads its constant tables (decode_tables) from a cache kept
+per device, uploaded on the device's first call. On a CUDA device it
+replays its body as a CUDA graph once its shapes recur (GraphRunner, one
+a detector, one a thread for other callers), with outputs bit-identical
+to the eager body; on the CPU the body runs eagerly.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -32,6 +39,7 @@ from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.apriltag.families import TagFamily
 from ros_vision_tpu_torch.device import host_syncs, kernel_route
 from ros_vision_tpu_torch.ops import mathf
+from ros_vision_tpu_torch.ops.graphs import Runner, stream_id, thread_runner
 
 QUAD_DECIMATE = 2
 DECODE_SHARPENING = 0.25
@@ -366,10 +374,14 @@ def _src_basis_inv() -> np.ndarray:
 _SRC_BASIS_INV = _src_basis_inv()
 
 
-def quad_homographies(corners: torch.Tensor, syncs=None) -> torch.Tensor:
+def quad_homographies(corners: torch.Tensor,
+                      basis: torch.Tensor | None = None) -> torch.Tensor:
     """Tag frame (-1,-1),(1,-1),(1,1),(-1,1) -> corners, (..., 4, 2) ->
     (..., 3, 3) normalised to H[2,2] = 1 (projective-basis closed form).
-    `syncs` (device.HostSyncs) counts the basis table's upload."""
+    `basis`: S^-1 on corners' device (constant_tables' `basis`, looked up
+    when None)."""
+    if basis is None:
+        basis = constant_tables(corners.device, host_syncs(None))["basis"]
     u = corners[..., 0]
     v = corners[..., 1]
     p = torch.stack([u, v, torch.ones_like(u)], dim=-2)     # (..., 3, 4)
@@ -384,7 +396,7 @@ def quad_homographies(corners: torch.Tensor, syncs=None) -> torch.Tensor:
         torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)], -2)
     cvec = bmv3(adj, p4)
     G = m * cvec[..., None, :]
-    H = bmm3(G, host_syncs(syncs).upload(_SRC_BASIS_INV, corners.device))
+    H = bmm3(G, basis)
     h22 = H[..., 2:3, 2:3]
     h22 = torch.where(torch.abs(h22) < 1e-20,
                       torch.where(h22 < 0, -1e-20, 1e-20), h22)
@@ -399,19 +411,12 @@ def project(H: torch.Tensor, tx, ty):
     return px, py
 
 
-_DECODE_TABLES_CACHE: dict = {}
-
-
 def _decode_tables(family: TagFamily):
     """Static sample-coordinate tables for a family geometry (copied from
     ros_vision_tpu/ops/decode.py, which imports jax): border sample
     coordinates with their white/black labels, data-bit coordinates, and
-    the flat sharpening-grid index of each bit (None for dense layouts)."""
-    key = (family.name, family.nbits, family.border_size,
-           family.total_width, family.reversed_border)
-    hit = _DECODE_TABLES_CACHE.get(key)
-    if hit is not None:
-        return hit
+    the flat sharpening-grid index of each bit (None for dense layouts),
+    as numpy arrays."""
     wb = family.border_size
     pats = [(-0.5, 0.5, 0, 1, 1), (0.5, 0.5, 0, 1, 0),
             (wb + 0.5, 0.5, 0, 1, 1), (wb - 0.5, 0.5, 0, 1, 0),
@@ -439,9 +444,56 @@ def _decode_tables(family: TagFamily):
         grid_idx = ((bc[:, 1] - min_coord) * total
                     + (bc[:, 0] - min_coord)).astype(np.int32)
         assert grid_idx.min() >= 0 and grid_idx.max() < total * total
-    out = (border, bits, grid_idx)
-    _DECODE_TABLES_CACHE[key] = out
-    return out
+    return border, bits, grid_idx
+
+
+# the tag's corners in the tag frame, in the order of a detection's corners
+TAG_CORNERS = [[-1, 1], [1, 1], [1, -1], [-1, -1]]
+_TABLES: dict = {}
+
+
+def constant_tables(device: torch.device, syncs) -> dict:
+    """The family-free tables on `device`, uploaded (through `syncs`,
+    device.HostSyncs) on the device's first call and kept for every later
+    one, with the values and dtypes torch.as_tensor gives: `basis`, the
+    homography's S^-1 (f32 (3, 3)), and `tag_corners`, TAG_CORNERS as f32
+    (4, 2)."""
+    key = str(device)
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        tabs = _TABLES.setdefault(key, {
+            "basis": syncs.upload(_SRC_BASIS_INV, device),
+            "tag_corners": syncs.upload(TAG_CORNERS, device,
+                                        torch.float32)})
+    return tabs
+
+
+def family_key(family: TagFamily) -> tuple:
+    """What decode_quads' tables and graphs depend on of a family."""
+    return (family.name, family.nbits, family.border_size,
+            family.total_width, family.reversed_border)
+
+
+def decode_tables(family: TagFamily, device: torch.device, syncs) -> dict:
+    """decode_quads' tables for `family` on `device`, uploaded as
+    constant_tables are: constant_tables' `basis`; the border samples'
+    tag-frame `btx`, `bty` and white labels `bwhite`; the data bits'
+    `dtx`, `dty` (f32, as _decode_tables builds them); and `grid_idx`,
+    the bits' flat sharpening-grid index as int64 (None for dense
+    layouts)."""
+    key = (str(device),) + family_key(family)
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        basis = constant_tables(device, syncs)["basis"]
+        (btx, bty, bwhite), (dtx, dty), grid_idx = _decode_tables(family)
+        up = syncs.upload
+        tabs = _TABLES.setdefault(key, {
+            "basis": basis, "btx": up(btx, device), "bty": up(bty, device),
+            "bwhite": up(bwhite, device), "dtx": up(dtx, device),
+            "dty": up(dty, device),
+            "grid_idx": None if grid_idx is None
+            else up(grid_idx, device, torch.int64)})
+    return tabs
 
 
 def make_code_matrix(family: TagFamily) -> np.ndarray:
@@ -458,19 +510,68 @@ def make_code_matrix(family: TagFamily) -> np.ndarray:
 
 def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
                  quad_valid: torch.Tensor, family: TagFamily,
-                 code_matrix: torch.Tensor, syncs=None) -> dict:
+                 code_matrix: torch.Tensor, syncs=None,
+                 graphs: "GraphRunner | None" = None) -> dict:
     """Quad decode (apriltag quad_decode semantics): ok (B,NQ), tag_id,
     hamming, rotation (int32), margin (f32), H (B,NQ,3,3). `syncs`
-    (device.HostSyncs) counts the sample tables' uploads."""
+    (device.HostSyncs) counts the tables' uploads on a device's first
+    call. On a CUDA device the body runs through `graphs` (the calling
+    thread's own GraphRunner when None), which replays it as a CUDA graph
+    once its shapes recur; on the CPU it runs eagerly."""
+    tabs = decode_tables(family, corners.device, host_syncs(syncs))
+    if corners.device.type != "cuda":
+        return _decode_quads(family, tabs, code_matrix, gray, corners,
+                             quad_valid)
+    if graphs is None:
+        graphs = thread_runner(GraphRunner)
+    return graphs.run(gray, corners, quad_valid, family, code_matrix, tabs)
+
+
+class GraphRunner(Runner):
+    """decode_quads on a CUDA device, replayed as a CUDA graph once its
+    key recurs (ops/graphs.Runner), with outputs bit-identical to the
+    eager body. The key is what the code observes: the device, the
+    current stream, gray's shape and dtype, corners' shape (B, NQ) and
+    dtype, quad_valid's dtype, the family (family_key) and the code
+    matrix's identity (its address, shape and dtype: the graph reads it
+    in place, and holds it). The graph reads gray, corners and quad_valid
+    from buffers each replay copies them into. `runs` counts decode_quads
+    calls by how they ran (RUNS), as the calling thread's open call
+    record does under `decode`."""
+
+    LAYER = "decode"
+
+    def run(self, gray: torch.Tensor, corners: torch.Tensor,
+            quad_valid: torch.Tensor, family: TagFamily,
+            code_matrix: torch.Tensor, tabs: dict) -> dict:
+        dev = corners.device
+        on = (dev, stream_id(dev))
+        key = (str(dev), on[1], tuple(gray.shape), gray.dtype,
+               tuple(corners.shape), corners.dtype, quad_valid.dtype,
+               family_key(family), code_matrix.data_ptr(),
+               tuple(code_matrix.shape), code_matrix.dtype)
+        how = []
+        with torch.inference_mode():
+            out = self._stage(
+                key, on, how, (tabs, code_matrix),
+                functools.partial(_decode_quads, family, tabs, code_matrix),
+                {"gray": gray, "corners": corners, "quad_valid": quad_valid},
+                "decode_quads:")
+            out = {k: self._copy(v) for k, v in out.items()}
+        self._count(how)
+        return out
+
+
+def _decode_quads(family: TagFamily, tabs: dict, code_matrix: torch.Tensor,
+                  gray: torch.Tensor, corners: torch.Tensor,
+                  quad_valid: torch.Tensor) -> dict:
+    """decode_quads' body on decode_tables' `tabs`: device work alone, no
+    host read and no upload."""
     b, nq = corners.shape[:2]
     dev = corners.device
-    syncs = host_syncs(syncs)
     gray_f = gray.to(torch.float32)
-    H = quad_homographies(corners, syncs)
-    (btx, bty, bwhite), (dtx, dty), grid_idx = _decode_tables(family)
-    btx = syncs.upload(btx, dev)
-    bty = syncs.upload(bty, dev)
-    bwhite = syncs.upload(bwhite, dev)
+    H = quad_homographies(corners, tabs["basis"])
+    btx, bty, bwhite = tabs["btx"], tabs["bty"], tabs["bwhite"]
 
     # border samples -> white/black gray models
     Hb = H[:, :, None, :, :]
@@ -511,8 +612,7 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
     ok_models = (cw[..., 2] - ck[..., 2]) >= 0
 
     # data bit samples
-    dtxj = syncs.upload(dtx, dev)
-    dtyj = syncs.upload(dty, dev)
+    dtxj, dtyj = tabs["dtx"], tabs["dty"]
     bx = Hb[..., 0, 0] * dtxj + Hb[..., 0, 1] * dtyj + Hb[..., 0, 2]
     by = Hb[..., 1, 0] * dtxj + Hb[..., 1, 1] * dtyj + Hb[..., 1, 2]
     bz = Hb[..., 2, 0] * dtxj + Hb[..., 2, 1] * dtyj + Hb[..., 2, 2]
@@ -523,19 +623,19 @@ def decode_quads(gray: torch.Tensor, corners: torch.Tensor,
 
     # decode sharpening on the (total, total) grid
     total = family.total_width
-    if grid_idx is None:
+    gi = tabs["grid_idx"]
+    if gi is None:
         g = family.grid_size
         grid = torch.zeros((b, nq, total, total), dtype=torch.float32,
                            device=dev)
         grid[:, :, 2:2 + g, 2:2 + g] = vals.reshape(b, nq, g, g)
     else:
-        gi = syncs.upload(grid_idx, dev, torch.int64)
         grid = torch.zeros((b, nq, total * total), dtype=torch.float32,
                            device=dev)
         grid[:, :, gi] = vals
         grid = grid.reshape(b, nq, total, total)
     grid = grid + DECODE_SHARPENING * laplacian3(grid)
-    if grid_idx is None:
+    if gi is None:
         g = family.grid_size
         vals = grid[:, :, 2:2 + g, 2:2 + g].reshape(b, nq, g * g)
     else:

@@ -17,26 +17,21 @@ configurations give bit-identical outputs.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import gc
 import itertools
 import math
-import threading
-import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.device import host_syncs
 from ros_vision_tpu_torch.ops import mathf, scan
 from ros_vision_tpu_torch.ops import segments as segs
 from ros_vision_tpu_torch.ops import sort_kernel
 from ros_vision_tpu_torch.ops.gather_kernel import histogram
-from ros_vision_tpu_torch.utils import tracing
+from ros_vision_tpu_torch.ops.graphs import Runner, stream_id, thread_runner
 from ros_vision_tpu_torch.utils.tracing import Span
 
 MIN_BLOB_PIXELS = 25
@@ -304,7 +299,7 @@ def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
         if decim.device.type != "cuda":
             return _cluster_and_fit(pts, decim, cfg, syncs)
         if graphs is None:
-            graphs = _thread_runner()
+            graphs = thread_runner(GraphRunner)
         return graphs.run(pts, decim, cfg, syncs)
 
 
@@ -741,214 +736,50 @@ def fit_quads(cfg: QuadFitConfig, tabs: dict, count, start_tab, cx, cy,
             "n_quads": quad_valid.sum(dim=1)}
 
 
-class _Graph:
-    """One captured stage: its CUDA graph, the tensors it reads (bound at
-    capture), the tensors it writes, the launches its kernel wrappers made
-    while it was captured, and the tables it reads."""
-    __slots__ = ("graph", "inputs", "outputs", "launches", "tabs")
-
-    def __init__(self, graph, inputs, outputs, launches, tabs):
-        self.graph = graph
-        self.inputs = inputs
-        self.outputs = outputs
-        self.launches = launches
-        self.tabs = tabs
-
-
-class GraphRunner:
+class GraphRunner(Runner):
     """cluster_and_fit's three stages on a CUDA device, each replayed as a
-    CUDA graph once its shapes recur, with outputs bit-identical to the
-    eager stages.
+    CUDA graph once its shapes recur (ops/graphs.Runner), with outputs
+    bit-identical to the eager stages.
 
     A stage's key is what the code observes: the device, the current
     stream, B and K, decim's shape, the dtypes, the config and, for the
-    lines stage, the branch the host read picked. The first run at a key
-    is eager, and is the warm-up a capture needs (kernels loaded, the K4
-    and K9 launchers' one-time device checks made); the second captures
-    the stage on a side stream and replays it; later runs replay. So a
-    shape seen once never pays for a capture; a key whose capture fails
-    runs eagerly from then on, with a warning. A graph reads its inputs
-    where the previous stage's graph wrote them, else from buffers of its
-    own that each replay first copies the inputs into; it writes into a
-    memory pool of its own, and the call returns copies, so a later replay
-    changes nothing a caller holds. A replay adds to _build's launch
-    counters what its wrappers added while it was captured.
+    lines stage, the branch the host read picked. A graph reads its
+    inputs where the previous stage's graph wrote them. `runs` counts
+    cluster_and_fit calls by how they ran (RUNS), as the calling thread's
+    open call record does under `quadfit`."""
 
-    `runs` counts cluster_and_fit calls by how they ran (RUNS): eager
-    when any stage ran eagerly, captured when any was captured, replayed
-    when all three replayed; so does the calling thread's open call
-    record (utils/tracing.RECORDER). A runner serves one thread at a time:
-    a TorchDetector holds one, other callers get one per thread."""
-
-    RUNS = ("eager", "captured", "replayed")
-
-    def __init__(self):
-        self._graphs: dict = {}
-        self._seen: set = set()
-        self._eager: set = set()     # keys whose capture failed
-        self._static: dict = {}      # id -> tensor, every graph's outputs
-        self._side: dict = {}        # device -> capture stream
-        self.runs = dict.fromkeys(self.RUNS, 0)
+    LAYER = "quadfit"
 
     def run(self, pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,
             syncs) -> dict:
         key, pack2 = pts["key"], pts["pack2"]
         dev = decim.device
-        stream = _stream_id(dev)
+        stream = stream_id(dev)
         base = (str(dev), stream, tuple(key.shape), key.dtype, pack2.dtype,
                 tuple(decim.shape), decim.dtype, cfg)
         on = (dev, stream)
         how = []
+
+        def stage(name, *branch, fn, inputs):
+            return self._stage((name,) + branch + base, on, how, tabs, fn,
+                               inputs, f"cluster_and_fit: the {name} "
+                               "stage's")
         with torch.inference_mode():
             tabs = constant_tables(dev, syncs)
             with Span("quadfit.sort"):
-                s = self._stage(
-                    ("sort",) + base, on, how, tabs,
-                    functools.partial(fit_sort, cfg, tuple(decim.shape)),
-                    {"key": key, "pack2": pack2})
+                s = stage("sort", fn=functools.partial(
+                    fit_sort, cfg, tuple(decim.shape)),
+                    inputs={"key": key, "pack2": pack2})
             with Span("quadfit.lines"):
                 stable = syncs.item(s["stable"])
-                ln = self._stage(
-                    ("lines", stable) + base, on, how, tabs,
-                    functools.partial(fit_lines, cfg, tabs, stable),
-                    {"decim": decim, **_take(s, _LINES_IN)})
+                ln = stage("lines", stable, fn=functools.partial(
+                    fit_lines, cfg, tabs, stable),
+                    inputs={"decim": decim, **_take(s, _LINES_IN)})
             with Span("quadfit.quads"):
-                q = self._stage(
-                    ("quads",) + base, on, how, tabs,
-                    functools.partial(fit_quads, cfg, tabs),
-                    {**_take(s, _QUADS_IN_S), **_take(ln, _QUADS_IN_L)})
+                q = stage("quads", fn=functools.partial(
+                    fit_quads, cfg, tabs),
+                    inputs={**_take(s, _QUADS_IN_S),
+                            **_take(ln, _QUADS_IN_L)})
                 out = _result(s, ln, q, self._copy)
-        i = min(how)
-        self.runs[self.RUNS[i]] += 1
-        tracing.RECORDER.quadfit_run(i)
+        self._count(how)
         return out
-
-    def _copy(self, t: torch.Tensor) -> torch.Tensor:
-        return t.clone() if self._static.get(id(t)) is t else t
-
-    def _stage(self, key, on: tuple, how: list, tabs: dict, fn,
-               inputs: dict) -> dict:
-        g = self._graphs.get(key)
-        if g is None:
-            if key not in self._seen or key in self._eager:
-                self._seen.add(key)
-                how.append(0)
-                return fn(**inputs)
-            try:
-                g = self._graphs[key] = self._capture(fn, inputs, tabs)
-            except RuntimeError as e:
-                self._eager.add(key)
-                warnings.warn(f"cluster_and_fit: the {key[0]} stage's "
-                              f"capture failed ({e}); it runs eagerly")
-                how.append(0)
-                return fn(**inputs)
-            how.append(1)
-        else:
-            for name, t in g.inputs.items():
-                if inputs[name] is not t:
-                    t.copy_(inputs[name])
-            how.append(2)
-        _replay(g.graph, *on)
-        _build.replayed(g.launches)
-        return g.outputs
-
-    def _capture(self, fn, inputs: dict, tabs: dict) -> _Graph:
-        """The stage bound to its inputs (the previous graph's outputs as
-        they are, other inputs copied to buffers of its own) and
-        captured."""
-        bound = {n: t if self._static.get(id(t)) is t else t.clone()
-                 for n, t in inputs.items()}
-        with _build.recording() as launches:
-            graph, out = self._record(fn, bound)
-        for t in out.values():
-            self._static[id(t)] = t
-        return _Graph(graph, bound, out, launches, tabs)
-
-    def _record(self, fn, bound: dict) -> tuple:
-        """(graph, outputs): fn(**bound) captured on the device's side
-        stream, with no device synchronisation; only the calling thread
-        may make no unsafe CUDA call meanwhile, so other threads' work on
-        the device goes on. One capture at a time in the process, and no
-        garbage collection during one (it would destroy the graphs of
-        detectors that died in reference cycles)."""
-        dev = next(iter(bound.values())).device
-        side = self._side.get(dev)
-        if side is None:
-            side = self._side[dev] = torch.cuda.Stream(dev)
-        cur = torch.cuda.current_stream(dev)
-        graph = torch.cuda.CUDAGraph()
-        with _CAPTURE, torch.cuda.stream(side):
-            side.wait_stream(cur)
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    out = fn(**bound)
-                finally:
-                    graph.capture_end()
-            finally:
-                if collecting:
-                    gc.enable()
-        cur.wait_stream(side)
-        return graph, out
-
-
-_LAUNCH: list = []
-
-
-def _graph_launch():
-    """cudaGraphLaunch of the CUDA runtime that torch loaded, called
-    through ctypes.PyDLL, so the call holds the GIL; None where no shared
-    runtime is mapped into the process."""
-    if not _LAUNCH:
-        with open("/proc/self/maps") as maps:
-            paths = [line.split()[-1] for line in maps
-                     if "/libcudart" in line]
-        fn = None
-        if paths:
-            fn = ctypes.PyDLL(paths[0]).cudaGraphLaunch
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _LAUNCH.append(fn)
-    return _LAUNCH[0]
-
-
-def _replay(graph, dev: torch.device, stream: int) -> None:
-    """graph.replay() on `stream`, with the GIL held through the launch.
-    CUDAGraph.replay releases the GIL around cudaGraphLaunch, so a
-    torch.profiler started or stopped on another thread (both hold the
-    GIL) overlapped the launch of a whole graph: on an H100 that hung the
-    process, or aborted it at exit, in about one traced benchmark run in
-    four. The graphs hold no random-number state, so the launch is all
-    that replay() does for them."""
-    launch = _graph_launch() if dev.type == "cuda" else None
-    if launch is None or not hasattr(graph, "raw_cuda_graph_exec"):
-        graph.replay()
-        return
-    if torch.cuda.current_device() == dev.index:
-        rc = launch(graph.raw_cuda_graph_exec(), stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = launch(graph.raw_cuda_graph_exec(), stream)
-    if rc != 0:
-        raise RuntimeError(f"cudaGraphLaunch failed with error {rc}")
-
-
-def _stream_id(dev: torch.device) -> int:
-    """The device's current stream (0 off CUDA, where only tests run the
-    runner)."""
-    if dev.type != "cuda":
-        return 0
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-_LOCAL = threading.local()
-_CAPTURE = threading.Lock()
-
-
-def _thread_runner() -> GraphRunner:
-    runner = getattr(_LOCAL, "runner", None)
-    if runner is None:
-        runner = _LOCAL.runner = GraphRunner()
-    return runner

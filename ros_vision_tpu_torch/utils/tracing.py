@@ -18,7 +18,9 @@ every kernel (cuda_frc971.cu:5-26). Here:
     over it: each `.item()` read and constant-table upload, and the host
     ns spent inside them; its `quadfit_eager`, `quadfit_captured` and
     `quadfit_replayed` count how its cluster_and_fit calls on a CUDA
-    device ran (ops/quadfit.GraphRunner). Spans are stamped
+    device ran (ops/quadfit.GraphRunner), and `decode_eager`,
+    `decode_captured` and `decode_replayed` its decode_quads calls
+    (ops/decode.GraphRunner). Spans are stamped
     with time.time_ns(), the clock of torch.profiler's events, so device
     operations and idle gaps in a profile can be put down to the span open
     at their runtime call. No span synchronises, records an event or reads
@@ -59,8 +61,10 @@ SPANS = ("detector", "quadfit", "quadfit.sort", "quadfit.lines",
 # the spans a game-piece call records (models/infer.ModelInference)
 GAMEPIECE_SPANS = ("gamepiece", "gamepiece.preprocess", "gamepiece.forward",
                    "gamepiece.nms")
-# how a cluster_and_fit call on a CUDA device ran (ops/quadfit.GraphRunner)
-QUADFIT_RUNS = ("eager", "captured", "replayed")
+# the layers that replay CUDA graphs (ops/graphs.Runner), and how a call
+# of one on a CUDA device ran
+GRAPH_LAYERS = ("quadfit", "decode")
+GRAPH_RUNS = ("eager", "captured", "replayed")
 SPAN_SLOTS = 1 << 18
 CALL_SLOTS = 1 << 16
 
@@ -68,10 +72,11 @@ CALL_SLOTS = 1 << 16
 class _Open:
     """The calling thread's open call: the name of its outer span, its
     sequence number, start (epoch ns), its HostSyncs' count and ns at the
-    start, the sequence number of its first span, and its cluster_and_fit
-    runs on a CUDA device by how they ran (QUADFIT_RUNS)."""
+    start, the sequence number of its first span, and its calls of each
+    of GRAPH_LAYERS on a CUDA device by how they ran (GRAPH_RUNS), layer
+    by layer."""
     __slots__ = ("name", "seq", "t0", "syncs", "sync_ns", "span_lo",
-                 "quadfit")
+                 "runs")
 
     def __init__(self, name: str, seq: int, t0: int, syncs):
         self.name = name
@@ -80,7 +85,7 @@ class _Open:
         self.syncs = syncs.count
         self.sync_ns = syncs.ns
         self.span_lo = -1
-        self.quadfit = [0] * len(QUADFIT_RUNS)
+        self.runs = [0] * (len(GRAPH_LAYERS) * len(GRAPH_RUNS))
 
 
 def _ring(columns: int, slots: int) -> list:
@@ -93,10 +98,11 @@ class Recorder:
     columns; a record overwrites the oldest once a ring is full). A span
     row: its sequence number, name id, call and start and end (epoch ns);
     a call row: its sequence number, start, end, thread, syncs, sync_ns,
-    first span and its cluster_and_fit runs by QUADFIT_RUNS. The open call
-    is per thread, so worker threads (as parallel/mesh.py runs them, each
-    with a detector of its own) record calls of their own. `enabled =
-    False` turns every span and counter into one attribute test."""
+    first span and its graph layers' runs (GRAPH_LAYERS by GRAPH_RUNS).
+    The open call is per thread, so worker threads (as parallel/mesh.py
+    runs them, each with a detector of its own) record calls of their
+    own. `enabled = False` turns every span and counter into one
+    attribute test."""
 
     def __init__(self, span_slots: int = SPAN_SLOTS,
                  call_slots: int = CALL_SLOTS):
@@ -105,7 +111,8 @@ class Recorder:
                 raise ValueError(f"ring size {n} is not a power of two")
         self.enabled = True
         self._spans = _ring(5, span_slots)
-        self._calls = _ring(7 + len(QUADFIT_RUNS), call_slots)
+        self._calls = _ring(7 + len(GRAPH_LAYERS) * len(GRAPH_RUNS),
+                            call_slots)
         self._span_seq = itertools.count()
         self._call_seq = itertools.count()
         self._ids: dict = {}
@@ -137,12 +144,12 @@ class Recorder:
         s1[j] = t1
         seq[j] = i
 
-    def quadfit_run(self, how: int) -> None:
-        """Count a cluster_and_fit call on a CUDA device in the calling
-        thread's open call, as QUADFIT_RUNS[how]."""
+    def graph_run(self, layer: str, how: int) -> None:
+        """Count a call of `layer` (of GRAPH_LAYERS) on a CUDA device in
+        the calling thread's open call, as GRAPH_RUNS[how]."""
         o = getattr(self._local, "open", None)
         if o is not None:
-            o.quadfit[how] += 1
+            o.runs[GRAPH_LAYERS.index(layer) * len(GRAPH_RUNS) + how] += 1
 
     def _begin(self, syncs, name: str = "detector") -> _Open:
         o = _Open(name, next(self._call_seq), time.time_ns(), syncs)
@@ -163,7 +170,7 @@ class Recorder:
         n_syncs[j] = syncs.count - o.syncs
         sync_ns[j] = syncs.ns - o.sync_ns
         lo[j] = o.span_lo
-        for col, n in zip(runs, o.quadfit):
+        for col, n in zip(runs, o.runs):
             col[j] = n
         seq[j] = o.seq
 
@@ -175,8 +182,9 @@ class Recorder:
     def calls(self, since_ns: int = 0) -> list:
         """The call records the ring still holds that started at or after
         `since_ns`, oldest first, each a dict: t0_ns, t1_ns, thread, syncs,
-        sync_ns, quadfit_eager, quadfit_captured, quadfit_replayed (its
-        cluster_and_fit calls on a CUDA device by QUADFIT_RUNS) and spans,
+        sync_ns, `<layer>_<run>` for each of GRAPH_LAYERS and GRAPH_RUNS
+        (quadfit_eager, ..., decode_replayed: its calls of the layer on a
+        CUDA device by how they ran) and spans,
         {name: [(t0_ns, t1_ns), ...]} of the spans recorded inside the
         call (its outer span, `detector` or `gamepiece`, among them), or
         None where the span ring no longer holds them all."""
@@ -199,8 +207,9 @@ class Recorder:
             spans = by_call.get(seq) if 0 <= lo and oldest <= lo else None
             out.append({"t0_ns": t0, "t1_ns": t1, "thread": thread,
                         "syncs": syncs, "sync_ns": sync_ns,
-                        **{f"quadfit_{k}": n
-                           for k, n in zip(QUADFIT_RUNS, runs)},
+                        **{f"{layer}_{k}": n for (layer, k), n in zip(
+                            itertools.product(GRAPH_LAYERS, GRAPH_RUNS),
+                            runs)},
                         "spans": spans})
         return out
 
@@ -321,7 +330,7 @@ def _stages(det):
 
     def s_decode(gray, st):
         return dec.decode_quads(gray, st["corners_full"], st["quad_valid"],
-                                fam, cm)
+                                fam, cm, syncs, det._decode_graphs)
 
     def s_pose(gray, st):
         fx, fy, cx, cy = intrinsics(gray)[0].unbind(1)

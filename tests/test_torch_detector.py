@@ -104,8 +104,9 @@ def test_host_api_and_packing(frames, monkeypatch):
     from ros_vision_tpu_torch.ops import quadfit as tqf
     g, _ = frames
     det = TorchDetector(device="cpu", width=W, height=H, **INTR)
-    # cluster_and_fit's tables, as on a device's first call
+    # cluster_and_fit's and decode's tables, as on a device's first call
     monkeypatch.setattr(tqf, "_TABLES", {})
+    monkeypatch.setattr(tdec, "_TABLES", {})
     s0 = det.host_syncs.count
     reads = []
     item = det.host_syncs.item
@@ -116,13 +117,14 @@ def test_host_api_and_packing(frames, monkeypatch):
     # < max_points, i.e. from 1280x800 up)
     assert det._active_points == det.config.max_points
     assert len(reads) == 3
-    # the count also holds the constant tables' uploads: 1 of the plain
-    # boundary compaction, 14 of cluster_and_fit (a device's first call
-    # only), 6 of each decode, 1 of the tail and 2 of the plain pose
-    assert det.host_syncs.count - s0 == 3 + 30
+    # the count also holds the tables' uploads: 1 of the plain boundary
+    # compaction and 2 of the plain pose each call; on a device's first
+    # call only, 14 of cluster_and_fit and 7 of decode (the homography
+    # basis, the tail's corner table, 3 border and 2 data-bit tables)
+    assert det.host_syncs.count - s0 == 3 + 24
     s1 = det.host_syncs.count
     det.detect_raw(g)
-    assert len(reads) == 6 and det.host_syncs.count - s1 == 3 + 16
+    assert len(reads) == 6 and det.host_syncs.count - s1 == 3 + 3
     del det.host_syncs.item
     packed = det.detect_raw_packed(g)
     assert tuple(packed.shape) == (2, det.config.max_quads, 36)

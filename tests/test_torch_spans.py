@@ -21,7 +21,7 @@ from ros_vision_tpu_torch.apriltag.detector import TorchDetector
 from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                   simple_square_corners)
 from ros_vision_tpu_torch.device import HostSyncs
-from ros_vision_tpu_torch.ops import quadfit
+from ros_vision_tpu_torch.ops import decode, quadfit
 from ros_vision_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -44,11 +44,14 @@ GAMEPIECE_CELL = "gamepiece-yolo11n-pipelined-4cam"
 GAMEPIECE_READERS = {"gamepiece.span_ms": ("gamepiece",),
                      "gamepiece.forward_ms": ("gamepiece.forward",),
                      "gamepiece.nms_ms": ("gamepiece.nms",)}
-# constant-table uploads a CPU detector call makes after the first:
-# finish_points 1, each decode_quads 6 (its homographies' basis, the border
-# and data bit samples), the tail's corner table 1 and the plain pose's 2
-# (the card runs K3 and P1 in place of finish_points and the plain pose)
-UPLOADS = 16
+# table uploads a CPU detector call makes once the constant tables are
+# on the device: finish_points 1 and the plain pose's 2 (the card runs K3
+# and P1 in their place, so a warm call there uploads nothing)
+UPLOADS = 3
+# the constant tables a device's first call uploads: cluster_and_fit's
+# 14, decode's homography basis and the tail's corner table, and
+# tag36h11's border samples (3) and data bits (2)
+TABLES = 14 + 2 + 5
 
 
 def _small(**kw):
@@ -172,9 +175,9 @@ def test_upload_gives_what_torch_tensor_gives(data, dtype):
 @pytest.mark.parametrize("size", [(1280, 800), (1920, 1080)])
 def test_syncs_equal_a_patched_count(size, monkeypatch):
     """`syncs` = torch.tensor / torch.as_tensor calls that take host data
-    to a device, plus `.item()` reads, seen in one call."""
+    to a device, plus `.item()` reads, seen in one call: a device's first,
+    which uploads the constant tables, and a warm one."""
     det, g, intr = _bench(*size)
-    seen = {"uploads": 0, "items": 0}
 
     def counted(fn):
         def run(data, *a, **kw):
@@ -189,20 +192,23 @@ def test_syncs_equal_a_patched_count(size, monkeypatch):
     def counted_item(self):
         seen["items"] += 1
         return item(self)
-    # cluster_and_fit's constant tables are uploaded once a device, so
-    # the count is of a call after the first
-    quadfit.constant_tables(torch.device("cpu"), HostSyncs())
-    monkeypatch.setattr(torch, "tensor", counted(torch.tensor))
-    monkeypatch.setattr(torch, "as_tensor", counted(torch.as_tensor))
-    monkeypatch.setattr(torch.Tensor, "item", counted_item)
-    before = det.host_syncs.count
-    out, call = _one_call(det, g, intr)
-    monkeypatch.undo()
-    assert sorted(d.tag_id for d in det.unpack(out)[0]) == [0, 42, 100, 311]
-    assert seen["items"] == 4 and seen["uploads"] == UPLOADS
-    assert call["syncs"] == seen["uploads"] + seen["items"] \
-        == det.host_syncs.count - before
-    assert 0 < call["sync_ns"] < call["t1_ns"] - call["t0_ns"]
+    # the constant tables are uploaded on a device's first call only
+    monkeypatch.setattr(quadfit, "_TABLES", {})
+    monkeypatch.setattr(decode, "_TABLES", {})
+    for uploads in (UPLOADS + TABLES, UPLOADS):
+        seen = {"uploads": 0, "items": 0}
+        with monkeypatch.context() as m:
+            m.setattr(torch, "tensor", counted(torch.tensor))
+            m.setattr(torch, "as_tensor", counted(torch.as_tensor))
+            m.setattr(torch.Tensor, "item", counted_item)
+            before = det.host_syncs.count
+            out, call = _one_call(det, g, intr)
+        assert sorted(d.tag_id for d in det.unpack(out)[0]) == \
+            [0, 42, 100, 311]
+        assert seen["items"] == 4 and seen["uploads"] == uploads
+        assert call["syncs"] == seen["uploads"] + seen["items"] \
+            == det.host_syncs.count - before
+        assert 0 < call["sync_ns"] < call["t1_ns"] - call["t0_ns"]
 
 
 def _record(rec, n_calls, spans=("quadfit", "decode.tail"), syncs=2):
@@ -330,7 +336,7 @@ def test_graph_share_reader(monkeypatch):
             t0 = time.time_ns()
             with tracing.Call(s):
                 if how is not None:
-                    rec.quadfit_run(how)
+                    rec.graph_run("quadfit", how)
             out.append((t0, time.time_ns()))
         return out
 
@@ -355,12 +361,33 @@ def test_graph_share_reader(monkeypatch):
             call["quadfit_replayed"]) == (0, 0, 0)
 
 
+def test_decode_graph_share_entry_and_cpu_counts(monkeypatch):
+    """decode.graph_share's manifest entry, and its counts in a CPU call
+    record: the CPU runs decode_quads eagerly, outside the runner, so a
+    call counts no decode run and the reader is absent."""
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entries = {m["name"]: m for m in manifest["per_layer"]}
+    assert entries["decode.graph_share"] == {
+        "name": "decode.graph_share", "unit": "%", "better": "higher",
+        "source": "program_counter", "layer": "ops.decode",
+        "moves": "latency_p95_ms", "workloads": CELLS}
+    monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder())
+    det, g, intr = _small()
+    t0 = time.time_ns()
+    _, call = _one_call(det, g, intr)
+    assert (call["decode_eager"], call["decode_captured"],
+            call["decode_replayed"]) == (0, 0, 0)
+    reader = load_module("metrics", "decode.graph_share", ROOT)
+    assert reader.read(_summary([(t0, time.time_ns())])) is None
+
+
 def test_threads_record_calls_of_their_own(small):
     """A mesh of two CPU devices: each worker thread records its own
     call, with its own spans and counts."""
     det, g, intr = small
-    # cluster_and_fit's tables are uploaded on a device's first call only
+    # the constant tables are uploaded on a device's first call only
     quadfit.constant_tables(torch.device("cpu"), HostSyncs())
+    decode.decode_tables(det.family, torch.device("cpu"), HostSyncs())
     det2 = TorchDetector(det.config, device="cpu")
     det2.use_mesh([torch.device("cpu"), torch.device("cpu")])
     g2 = torch.cat([g, g])
