@@ -21,8 +21,9 @@ computes exactly what the JAX branch computes. On a CUDA device
 cluster_and_fit replays its three stages, and each decode_quads call its
 body, as CUDA graphs once a shape recurs (ops/quadfit.GraphRunner and
 ops/decode.GraphRunner, one of each a detector); the constant tables are
-uploaded on a device's first call only. Every call records its spans and
-synchronising operations in utils/tracing.RECORDER.
+uploaded on a device's first call only (device.device_tables). Every
+call records its spans and synchronising operations in
+utils/tracing.RECORDER.
 """
 from __future__ import annotations
 
@@ -158,7 +159,9 @@ class PendingOutput:
 
 
 class TorchDetector:
-    """Batched detector on one explicit device."""
+    """Batched detector on one explicit device. One helper (_width) makes
+    its host reads that pick widths: cluster_and_fit's point width and the
+    tail's slots; the tail (_tail) takes its candidates as tensors."""
 
     def __init__(self, config: DetectorConfig | None = None, *,
                  device, **kw):
@@ -231,97 +234,36 @@ class TorchDetector:
         with Call(self.host_syncs):
             return pack_outputs(self._pipeline(gray, intr))
 
+    def _width(self, count: torch.Tensor, widths) -> int | None:
+        """The narrowest of `widths` (ascending) that holds `count`, read
+        through host_syncs, or None: the full width."""
+        n = self.host_syncs.item(count)
+        return next((w for w in widths if n <= w), None)
+
     @torch.inference_mode()
     def _pipeline(self, gray: torch.Tensor, intr: torch.Tensor) -> dict:
         cfg = self.config
+        syncs = self.host_syncs
         decim, threshim = adaptive_threshold_fused(gray)
         pts, counts = frontend(threshim, cfg.max_points,
-                               self._qcfg.max_boundary_pixels,
-                               syncs=self.host_syncs)
-        return self._cluster_and_tail(gray, decim, pts, counts, intr)
-
-    def _cluster_and_tail(self, gray, decim, pts, counts, intr):
-        cfg = self.config
-        syncs = self.host_syncs
+                               self._qcfg.max_boundary_pixels, syncs=syncs)
         ka = self._active_points
-        if ka < pts["key"].shape[1] and \
-                syncs.item(counts.max()) <= ka:
-            # valid points sit first, so the narrow width is exact when
-            # every frame fits
-            qf = quadfit.cluster_and_fit(
-                {kk: v[:, :ka] for kk, v in pts.items()}, decim,
-                self._qcfg_narrow, syncs, self._quadfit_graphs)
-        else:
-            qf = quadfit.cluster_and_fit(pts, decim, self._qcfg, syncs,
-                                         self._quadfit_graphs)
+        # valid points sit first, so the narrow width is exact when every
+        # frame fits
+        w = self._width(counts.max(), (ka,)) \
+            if ka < pts["key"].shape[1] else None
+        if w is not None:
+            pts = {kk: v[:, :w] for kk, v in pts.items()}
+        qf = quadfit.cluster_and_fit(
+            pts, decim, self._qcfg if w is None else self._qcfg_narrow,
+            syncs, self._quadfit_graphs)
         corners = dec.adjust_pixel_centers(qf["corners"])
         qvalid = qf["quad_valid"]
-
-        fxs, fys, cxs, cys = (intr[:, i] for i in range(4))
-        dist = intr[:, 4:9]
-        use_dist = any(cfg.dist)
-
-        def tail(corners, qvalid):
-            c = corners
-            if cfg.refine_edges:
-                with Span("decode.refine"):
-                    c = dec.refine_edges(
-                        gray, c, qvalid, intr[:, :4] if use_dist else None,
-                        dist if use_dist else None,
-                        reversed_border=self.family.reversed_border,
-                        syncs=syncs)
-            with Span("decode.tail"):
-                d = dec.decode_quads(gray, c, qvalid, self.family,
-                                     self._code_matrix, syncs=syncs,
-                                     graphs=self._decode_graphs)
-            ok = d["ok"]
-            H = d["H"]
-            tcs = dec.constant_tables(gray.device, syncs)["tag_corners"]
-            px, py = dec.project(H[..., None, :, :], tcs[:, 0], tcs[:, 1])
-            det_corners = torch.stack([px, py], -1)         # (B, nq, 4, 2)
-            cx0, cy0 = dec.project(H, 0.0, 0.0)
-            centers = torch.stack([cx0, cy0], -1)
-
-            # reconcile duplicates: same id + overlapping centers -> keep
-            # the lowest hamming, then the highest margin
-            score = d["hamming"].to(torch.float32) * 1e6 - d["margin"]
-            score = torch.where(ok, score, torch.inf)
-            diag = torch.linalg.norm(
-                det_corners[:, :, 0] - det_corners[:, :, 2], dim=-1)
-            cdist = torch.linalg.norm(centers[:, :, None, :]
-                                      - centers[:, None, :, :], dim=-1)
-            same = (d["tag_id"][:, :, None] == d["tag_id"][:, None, :]) & \
-                (cdist < 0.5 * diag[:, :, None]) & \
-                ok[:, :, None] & ok[:, None, :]
-            nq = score.shape[1]
-            ii = torch.arange(nq, device=gray.device)
-            better = (score[:, None, :] < score[:, :, None]) | \
-                ((score[:, None, :] == score[:, :, None])
-                 & (ii[None, None, :] < ii[None, :, None]))
-            loses = (same & better
-                     & (ii[None, None, :] != ii[None, :, None])).any(-1)
-            out = {"ok": ok & ~loses, "tag_id": d["tag_id"],
-                   "hamming": d["hamming"], "margin": d["margin"], "H": H,
-                   "corners": det_corners, "centers": centers}
-            if cfg.estimate_pose and cfg.fx:
-                R, t, err = poseops.estimate_poses(
-                    H, cfg.tag_size, fxs, fys, cxs, cys, syncs=syncs)
-                out.update({"pose_R": R, "pose_t": t, "pose_err": err})
-            return out
 
         nq = cfg.max_quads
         na = cfg.max_active_quads
         if na >= nq:
-            return tail(corners, qvalid)
-
-        def padded(out, w):
-            return {kk: torch.nn.functional.pad(
-                v, [0, 0] * (v.ndim - 2) + [0, nq - w]) for kk, v in
-                out.items()}
-
-        # tail-width ladder: the narrowest tier whose slots hold every
-        # candidate runs (exact either way)
-        tiers = sorted({min(8, na), na})
+            return self._tail(gray, intr, corners, qvalid)
         if cfg.refine_edges and cfg.screen_hamming is not None:
             # decode-gated refine: a loose decode of the unrefined corners
             # screens out quads that cannot become detections
@@ -329,27 +271,80 @@ class TorchDetector:
                 pre = dec.decode_quads(gray, corners, qvalid, self.family,
                                        self._code_matrix, syncs=syncs,
                                        graphs=self._decode_graphs)
-            screen = qvalid & (pre["hamming"] <= cfg.screen_hamming)
-            prio = torch.where(screen, pre["margin"], -torch.inf)
+            valid = qvalid & (pre["hamming"] <= cfg.screen_hamming)
+            prio = torch.where(valid, pre["margin"], -torch.inf)
             # lax.top_k order: descending, ties to the lower index
-            top_idx = torch.sort(prio, dim=1, descending=True,
-                                 stable=True)[1][:, :na]
-            nscreen = syncs.item(screen.sum(dim=1).max())
-            for w in tiers:
-                if nscreen <= w:
-                    idx = top_idx[:, :w]
-                    c_n = torch.gather(corners, 1, idx[..., None, None]
-                                       .expand(-1, -1, 4, 2))
-                    v_n = torch.gather(screen, 1, idx)
-                    return padded(tail(c_n, v_n), w)
-            return tail(corners, qvalid)
-        # no-refine path: quads are area-ordered, so the first w slots hold
-        # every valid quad when each frame has at most w
-        nvalid = syncs.item(qvalid.sum(dim=1).max())
-        for w in tiers:
-            if nvalid <= w:
-                return padded(tail(corners[:, :w], qvalid[:, :w]), w)
-        return tail(corners, qvalid)
+            order = torch.sort(prio, dim=1, descending=True,
+                               stable=True)[1][:, :na]
+        else:
+            # quads sit in area order, so the first w slots hold every
+            # valid quad when each frame has at most w
+            valid, order = qvalid, None
+        # the tail-width ladder: the narrowest tier whose slots hold every
+        # candidate runs (exact either way)
+        w = self._width(valid.sum(dim=1).max(), sorted({min(8, na), na}))
+        if w is None:
+            return self._tail(gray, intr, corners, qvalid)
+        if order is None:
+            corners, valid = corners[:, :w], valid[:, :w]
+        else:
+            idx = order[:, :w]
+            corners = torch.gather(corners, 1, idx[..., None, None]
+                                   .expand(-1, -1, 4, 2))
+            valid = torch.gather(valid, 1, idx)
+        return {kk: torch.nn.functional.pad(
+            v, [0, 0] * (v.ndim - 2) + [0, nq - w])
+            for kk, v in self._tail(gray, intr, corners, valid).items()}
+
+    def _tail(self, gray: torch.Tensor, intr: torch.Tensor,
+              corners: torch.Tensor, valid: torch.Tensor) -> dict:
+        """The per-quad outputs of the n slots of `corners` (B, n, 4, 2),
+        `valid` (B, n) marking the candidates: refine, decode, the
+        detections' corners and centres, reconcile, pose."""
+        cfg = self.config
+        syncs = self.host_syncs
+        if cfg.refine_edges:
+            use_dist = any(cfg.dist)
+            with Span("decode.refine"):
+                corners = dec.refine_edges(
+                    gray, corners, valid, intr[:, :4] if use_dist else None,
+                    intr[:, 4:9] if use_dist else None,
+                    reversed_border=self.family.reversed_border,
+                    syncs=syncs)
+        with Span("decode.tail"):
+            d = dec.decode_quads(gray, corners, valid, self.family,
+                                 self._code_matrix, syncs=syncs,
+                                 graphs=self._decode_graphs)
+        ok = d["ok"]
+        H = d["H"]
+        det_corners, centers = dec.detection_points(H, syncs)
+
+        # reconcile duplicates: same id + overlapping centers -> keep the
+        # lowest hamming, then the highest margin
+        score = d["hamming"].to(torch.float32) * 1e6 - d["margin"]
+        score = torch.where(ok, score, torch.inf)
+        diag = torch.linalg.norm(
+            det_corners[:, :, 0] - det_corners[:, :, 2], dim=-1)
+        cdist = torch.linalg.norm(centers[:, :, None, :]
+                                  - centers[:, None, :, :], dim=-1)
+        same = (d["tag_id"][:, :, None] == d["tag_id"][:, None, :]) & \
+            (cdist < 0.5 * diag[:, :, None]) & \
+            ok[:, :, None] & ok[:, None, :]
+        ii = torch.arange(score.shape[1], device=gray.device)
+        better = (score[:, None, :] < score[:, :, None]) | \
+            ((score[:, None, :] == score[:, :, None])
+             & (ii[None, None, :] < ii[None, :, None]))
+        loses = (same & better
+                 & (ii[None, None, :] != ii[None, :, None])).any(-1)
+        out = {"ok": ok & ~loses, "tag_id": d["tag_id"],
+               "hamming": d["hamming"], "margin": d["margin"], "H": H,
+               "corners": det_corners, "centers": centers}
+        if cfg.estimate_pose and cfg.fx:
+            R, t, err = poseops.estimate_poses(
+                H, cfg.tag_size, *(intr[:, i] for i in range(4)),
+                syncs=syncs)
+            out.update({"pose_R": R, "pose_t": t, "pose_err": err})
+        return out
 
     # ---- host API ----------------------------------------------------------
     def _inputs(self, gray_batch, intrinsics):

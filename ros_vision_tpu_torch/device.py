@@ -1,4 +1,4 @@
-"""Device helpers: explicit CUDA selection, host-read accounting."""
+"""Device helpers: CUDA selection, host-read accounting, constant tables."""
 from __future__ import annotations
 
 import time
@@ -60,6 +60,22 @@ class HostSyncs:
         out = torch.as_tensor(data, dtype=dtype, device=device)
         self.ns += time.perf_counter_ns() - t0
         return out
+
+
+_TABLES: dict = {}      # (str(device), key) -> device_tables' dict
+
+
+def device_tables(device: torch.device, key, build, syncs: HostSyncs) -> dict:
+    """The dict of tables `build(upload)` makes for `key` on `device`,
+    built on the device's first call for `key` and kept for every later
+    one; `upload(data, dtype=None)` is syncs.upload(data, device, dtype):
+    the values and dtype torch.as_tensor gives, counted."""
+    k = (str(device), key)
+    tabs = _TABLES.get(k)
+    if tabs is None:
+        tabs = _TABLES.setdefault(k, build(
+            lambda data, dtype=None: syncs.upload(data, device, dtype)))
+    return tabs
 
 
 def host_syncs(syncs: HostSyncs | None) -> HostSyncs:

@@ -19,8 +19,9 @@ function's _refine_edges_core with its lax.fori_loop. The two give the
 same sample positions, weights and undistorted points bit for bit; only
 the order of the six moment sums differs.
 
-decode_quads reads its constant tables (decode_tables) from a cache kept
-per device, uploaded on the device's first call. On a CUDA device it
+decode_quads reads its constant tables (decode_tables) from the
+per-device cache (device.device_tables), uploaded on the device's first
+call, and detection_points the tag's corners. On a CUDA device it
 replays its body as a CUDA graph once its shapes recur (GraphRunner, one
 a detector, one a thread for other callers), with outputs bit-identical
 to the eager body; on the CPU the body runs eagerly.
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 
 from ros_vision_tpu_torch import _build
 from ros_vision_tpu_torch.apriltag.families import TagFamily
-from ros_vision_tpu_torch.device import host_syncs, kernel_route
+from ros_vision_tpu_torch.device import device_tables, host_syncs, kernel_route
 from ros_vision_tpu_torch.ops import mathf
 from ros_vision_tpu_torch.ops.graphs import Runner, stream_id, thread_runner
 
@@ -449,23 +450,15 @@ def _decode_tables(family: TagFamily):
 
 # the tag's corners in the tag frame, in the order of a detection's corners
 TAG_CORNERS = [[-1, 1], [1, 1], [1, -1], [-1, -1]]
-_TABLES: dict = {}
 
 
 def constant_tables(device: torch.device, syncs) -> dict:
-    """The family-free tables on `device`, uploaded (through `syncs`,
-    device.HostSyncs) on the device's first call and kept for every later
-    one, with the values and dtypes torch.as_tensor gives: `basis`, the
-    homography's S^-1 (f32 (3, 3)), and `tag_corners`, TAG_CORNERS as f32
-    (4, 2)."""
-    key = str(device)
-    tabs = _TABLES.get(key)
-    if tabs is None:
-        tabs = _TABLES.setdefault(key, {
-            "basis": syncs.upload(_SRC_BASIS_INV, device),
-            "tag_corners": syncs.upload(TAG_CORNERS, device,
-                                        torch.float32)})
-    return tabs
+    """The family-free tables on `device` (device.device_tables):
+    `basis`, the homography's S^-1 (f32 (3, 3)), and `tag_corners`,
+    TAG_CORNERS as f32 (4, 2)."""
+    return device_tables(device, "decode", lambda up: {
+        "basis": up(_SRC_BASIS_INV),
+        "tag_corners": up(TAG_CORNERS, torch.float32)}, syncs)
 
 
 def family_key(family: TagFamily) -> tuple:
@@ -475,25 +468,31 @@ def family_key(family: TagFamily) -> tuple:
 
 
 def decode_tables(family: TagFamily, device: torch.device, syncs) -> dict:
-    """decode_quads' tables for `family` on `device`, uploaded as
-    constant_tables are: constant_tables' `basis`; the border samples'
+    """decode_quads' tables for `family` on `device`
+    (device.device_tables): constant_tables' `basis`; the border samples'
     tag-frame `btx`, `bty` and white labels `bwhite`; the data bits'
     `dtx`, `dty` (f32, as _decode_tables builds them); and `grid_idx`,
     the bits' flat sharpening-grid index as int64 (None for dense
     layouts)."""
-    key = (str(device),) + family_key(family)
-    tabs = _TABLES.get(key)
-    if tabs is None:
+    def build(up):
         basis = constant_tables(device, syncs)["basis"]
         (btx, bty, bwhite), (dtx, dty), grid_idx = _decode_tables(family)
-        up = syncs.upload
-        tabs = _TABLES.setdefault(key, {
-            "basis": basis, "btx": up(btx, device), "bty": up(bty, device),
-            "bwhite": up(bwhite, device), "dtx": up(dtx, device),
-            "dty": up(dty, device),
-            "grid_idx": None if grid_idx is None
-            else up(grid_idx, device, torch.int64)})
-    return tabs
+        return {"basis": basis, "btx": up(btx), "bty": up(bty),
+                "bwhite": up(bwhite), "dtx": up(dtx), "dty": up(dty),
+                "grid_idx": None if grid_idx is None
+                else up(grid_idx, torch.int64)}
+    return device_tables(device, ("decode",) + family_key(family), build,
+                         syncs)
+
+
+def detection_points(H: torch.Tensor, syncs) -> tuple:
+    """A detection's corners (..., 4, 2) and centre (..., 2) in pixels:
+    TAG_CORNERS and the tag frame's origin through its H (..., 3, 3)."""
+    tcs = constant_tables(H.device, syncs)["tag_corners"]
+    px, py = project(H[..., None, :, :], tcs[:, 0], tcs[:, 1])
+    corners = torch.stack([px, py], -1)
+    cx, cy = project(H, 0.0, 0.0)
+    return corners, torch.stack([cx, cy], -1)
 
 
 def make_code_matrix(family: TagFamily) -> np.ndarray:

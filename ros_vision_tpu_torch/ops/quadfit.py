@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ros_vision_tpu_torch.device import host_syncs
+from ros_vision_tpu_torch.device import device_tables, host_syncs
 from ros_vision_tpu_torch.ops import mathf, scan
 from ros_vision_tpu_torch.ops import segments as segs
 from ros_vision_tpu_torch.ops import sort_kernel
@@ -249,35 +249,22 @@ def _float_sort_key(x: torch.Tensor) -> torch.Tensor:
     return key + 2 ** 31
 
 
-
-
-_TABLES: dict = {}
-
-
 def constant_tables(device: torch.device, syncs) -> dict:
-    """cluster_and_fit's 14 constant tables on `device`, uploaded (through
-    `syncs`, device.HostSyncs) on the device's first call and kept for
-    every later one, with the values and dtypes torch.as_tensor gives:
-    the 7 smoothing taps' slot indices, the fix slots' neighbours, the
-    slots a fix-slot peak may take, the 45 pairs' ends, the 210 combos'
-    pairs and their last maximum."""
-    key = str(device)
-    tabs = _TABLES.get(key)
-    if tabs is None:
-        up = syncs.upload
-        tabs = _TABLES.setdefault(key, {
-            "taps": tuple(up([((s if s < 5 else s - 10) + j) % 16
-                              for s in range(10)], device)
-                          for j in range(-3, 4)),
-            "nxt_idx": up([1, 2, 3, 4, 0, 6, 7, 8, 9, 0], device),
-            "prv_idx": up([9, 0, 1, 2, 0, 4, 5, 6, 7, 8], device),
-            "pk_slot_ok": up([True, True, True, True, False, False, True,
-                              True, True, True], device),
-            "pair_a": up(_PAIR_A, device),
-            "pair_b": up(_PAIR_B, device),
-            "combo_pairs": up(_COMBO_PAIRS, device),
-            "combo_last": up(_COMBOS[:, 3], device)})
-    return tabs
+    """cluster_and_fit's 14 constant tables on `device`
+    (device.device_tables): the 7 smoothing taps' slot indices, the fix
+    slots' neighbours, the slots a fix-slot peak may take, the 45 pairs'
+    ends, the 210 combos' pairs and their last maximum."""
+    return device_tables(device, "quadfit", lambda up: {
+        "taps": tuple(up([((s if s < 5 else s - 10) + j) % 16
+                          for s in range(10)]) for j in range(-3, 4)),
+        "nxt_idx": up([1, 2, 3, 4, 0, 6, 7, 8, 9, 0]),
+        "prv_idx": up([9, 0, 1, 2, 0, 4, 5, 6, 7, 8]),
+        "pk_slot_ok": up([True, True, True, True, False, False, True, True,
+                          True, True]),
+        "pair_a": up(_PAIR_A),
+        "pair_b": up(_PAIR_B),
+        "combo_pairs": up(_COMBO_PAIRS),
+        "combo_last": up(_COMBOS[:, 3])}, syncs)
 
 
 def cluster_and_fit(pts: dict, decim: torch.Tensor, cfg: QuadFitConfig,

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ros_vision_tpu_torch import device
 from ros_vision_tpu_torch.apriltag.families import TagFamily, get_family
 from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                   simple_square_corners)
@@ -198,7 +199,7 @@ def test_tables_equal_what_as_tensor_gives(fam, monkeypatch):
     (grid_idx as int64), uploaded through `syncs` on the device's first
     call (the basis and the tag's corners once a device, the family's
     once a device and family) and the same tensors after."""
-    monkeypatch.setattr(dec, "_TABLES", {})
+    monkeypatch.setattr(device, "_TABLES", {})
     cpu = torch.device("cpu")
     syncs = HostSyncs()
     tabs = dec.decode_tables(fam, cpu, syncs)

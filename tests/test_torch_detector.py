@@ -57,10 +57,7 @@ def plain_pair():
     return _pair()
 
 
-@pytest.mark.parametrize("dist", [None, (0.06, -0.03, 0.001, -0.0015, 0.0)])
-def test_detector_matches_jax(frames, plain_pair, dist):
-    g, _ = frames
-    jdet, tdet = plain_pair if dist is None else _pair(dist=dist)
+def _same_detections(jdet, tdet, g):
     assert tdet.config.max_points == jdet.config.max_points
     assert tdet._active_points == jdet._active_points
     assert tdet._qcfg.max_boundary_pixels == jdet._qcfg.max_boundary_pixels
@@ -74,6 +71,46 @@ def test_detector_matches_jax(frames, plain_pair, dist):
             assert np.abs(a.corners - b.corners).max() < 0.1
             assert np.abs(a.pose_t - b.pose_t).max() < 1e-3
             assert abs(a.decision_margin - b.decision_margin) < 1.0
+
+
+@pytest.mark.parametrize("dist", [None, (0.06, -0.03, 0.001, -0.0015, 0.0)])
+def test_detector_matches_jax(frames, plain_pair, dist):
+    g, _ = frames
+    _same_detections(*(plain_pair if dist is None else _pair(dist=dist)), g)
+
+
+# The tail's paths: a config and the tail width the bench frames take
+# (the tiers are {min(8, na), na} of max_active_quads na; 128 slots, the
+# full width, when no tier holds every candidate of a frame). Screened,
+# 5 or more candidates in a frame; area order, 9 or more valid quads.
+TAIL_PATHS = {
+    "screen-na2": ({"max_active_quads": 2}, 128),
+    "screen-na4": ({"max_active_quads": 4}, 128),
+    "screen": ({}, 8),
+    "area-order-na2": ({"max_active_quads": 2, "screen_hamming": None},
+                       128),
+    "area-order": ({"screen_hamming": None}, 32),
+    "no-refine": ({"refine_edges": False}, 32),
+}
+
+
+@pytest.mark.parametrize("path", list(TAIL_PATHS))
+def test_tail_paths_match_jax(frames, plain_pair, path, monkeypatch):
+    """Each path of the tail (the screen's narrow tier, the area order's
+    wide tier, the full-width fallback on both) gives TPUDetector's
+    detections, at the width the spy on TorchDetector._tail saw."""
+    g, _ = frames
+    kw, width = TAIL_PATHS[path]
+    jdet, tdet = _pair(**kw) if kw else plain_pair
+    widths = []
+    tail = TorchDetector._tail
+
+    def spy(self, gray, intr, corners, valid):
+        widths.append(corners.shape[1])
+        return tail(self, gray, intr, corners, valid)
+    monkeypatch.setattr(TorchDetector, "_tail", spy)
+    _same_detections(jdet, tdet, g)
+    assert widths == [width]
 
 
 def test_resolved_sizes_match_jax():
@@ -101,12 +138,11 @@ def test_config_from_jax_drops_only_backend_switches():
 
 
 def test_host_api_and_packing(frames, monkeypatch):
-    from ros_vision_tpu_torch.ops import quadfit as tqf
+    from ros_vision_tpu_torch import device as tdevice
     g, _ = frames
     det = TorchDetector(device="cpu", width=W, height=H, **INTR)
     # cluster_and_fit's and decode's tables, as on a device's first call
-    monkeypatch.setattr(tqf, "_TABLES", {})
-    monkeypatch.setattr(tdec, "_TABLES", {})
+    monkeypatch.setattr(tdevice, "_TABLES", {})
     s0 = det.host_syncs.count
     reads = []
     item = det.host_syncs.item

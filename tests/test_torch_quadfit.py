@@ -222,10 +222,11 @@ def _tag_quads(q, b: int) -> np.ndarray:
 def test_cluster_and_fit_counts_one_host_read(clean_points, monkeypatch):
     """A device's first call uploads the 14 constant tables; a second one
     uploads nothing, and its one host sync is the windowed-error read."""
+    from ros_vision_tpu_torch import device
     from ros_vision_tpu_torch.device import HostSyncs
     pts, decim = clean_points
     cfg = tqf.QuadFitConfig(max_points=4096, max_segments=256, max_quads=16)
-    monkeypatch.setattr(tqf, "_TABLES", {})
+    monkeypatch.setattr(device, "_TABLES", {})
     counts = []
     for _ in range(2):
         syncs = HostSyncs()
@@ -242,8 +243,9 @@ def test_cluster_and_fit_counts_one_host_read(clean_points, monkeypatch):
 
 
 def test_constant_tables_equal_what_as_tensor_gives(monkeypatch):
+    from ros_vision_tpu_torch import device
     from ros_vision_tpu_torch.device import HostSyncs
-    monkeypatch.setattr(tqf, "_TABLES", {})
+    monkeypatch.setattr(device, "_TABLES", {})
     tabs = tqf.constant_tables(torch.device("cpu"), HostSyncs())
     assert tqf.constant_tables(torch.device("cpu"), HostSyncs()) is tabs
     want = {"taps": [torch.as_tensor([((s if s < 5 else s - 10) + j) % 16

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from benchmark.harness.cell import load_module
+from ros_vision_tpu_torch import device
 from ros_vision_tpu_torch.apriltag.detector import TorchDetector
 from ros_vision_tpu_torch.apriltag.render import (render_scene,
                                                   simple_square_corners)
@@ -193,8 +194,7 @@ def test_syncs_equal_a_patched_count(size, monkeypatch):
         seen["items"] += 1
         return item(self)
     # the constant tables are uploaded on a device's first call only
-    monkeypatch.setattr(quadfit, "_TABLES", {})
-    monkeypatch.setattr(decode, "_TABLES", {})
+    monkeypatch.setattr(device, "_TABLES", {})
     for uploads in (UPLOADS + TABLES, UPLOADS):
         seen = {"uploads": 0, "items": 0}
         with monkeypatch.context() as m:
